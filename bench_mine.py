@@ -1,4 +1,4 @@
-"""Hard-negative mining profiler (VERDICT r3 weak #2).
+"""Hard-negative mining profiler.
 
 Reproduces the late-stage mining regime with a synthetic stump cascade
 whose per-stage acceptance is calibrated to ~0.5 (like real training),

@@ -23,19 +23,20 @@ import os as _os
 
 import jax as _jax
 
-# persistent compilation cache: detector/trainer programs are large and the
-# environment's remote AOT compiles are slow — cache across processes.
-if not _os.environ.get("CCTPU_NO_COMPILE_CACHE"):
-    _cache_dir = _os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.expanduser("~/.cache/cascadeclassifier_tpu/jax"),
+
+def compile_cache_dir() -> str:
+    """Where compiled programs persist across processes:
+    $JAX_COMPILATION_CACHE_DIR when set, else .jax_cache in the checkout
+    (a fixed path — the path is part of the cache key)."""
+    return _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache",
     )
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+
+
+# detector/trainer programs are large: keep compiled code across processes
+_jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from cascadeclassifier_tpu.models.model import (  # noqa: F401
     CascadeModel,

@@ -7,7 +7,7 @@ then scale ·= √2 and rescan, then next image. Resizes use the bit-exact
 INTER_LINEAR_EXACT twin (ops/resize.py) so every emitted window is
 byte-identical to the reference's.
 
-The TPU-native twist: ``take_batch(n)`` materializes the next n schedule
+The batched twist: ``take_batch(n)`` materializes the next n schedule
 windows in one (n, h, w) array so hard-negative mining can run the cascade
 on-device over large batches instead of the reference's
 one-window-per-predict loop (cascadeclassifier.cpp:329-357). Selection
@@ -23,6 +23,55 @@ from cascadeclassifier_tpu.ops.resize import resize_linear_exact_np
 
 SCALE_FACTOR = np.float32(1.4142135623730950488016887242097)
 STEP_FACTOR = np.float32(0.5)
+
+
+def read_pgm(path: str) -> np.ndarray:
+    """Binary 8-bit PGM (P5) → (h, w) uint8, with numpy only."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 2
+    if data[:2] != b"P5":
+        raise ValueError(f"{path}: not a binary PGM (P5)")
+    while len(fields) < 3:
+        while data[pos : pos + 1].isspace():
+            pos += 1
+        if data[pos : pos + 1] == b"#":
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while not data[end : end + 1].isspace():
+            end += 1
+        fields.append(int(data[pos:end]))
+        pos = end
+    w, h, maxval = fields
+    if maxval > 255:
+        raise ValueError(f"{path}: 16-bit PGM is not supported")
+    pos += 1  # the single whitespace byte after maxval
+    return np.frombuffer(data, np.uint8, w * h, pos).reshape(h, w).copy()
+
+
+def write_pgm(path: str, img: np.ndarray) -> None:
+    """(h, w) uint8 → binary PGM (P5)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n255\n" % (img.shape[1], img.shape[0]))
+        f.write(img.tobytes())
+
+
+def imread_gray(path: str):
+    """Grayscale (h, w) uint8 image, None when unreadable (cv2.imread's
+    contract). Binary PGM is read with numpy; other formats need OpenCV's
+    Python bindings."""
+    try:
+        with open(path, "rb") as f:
+            magic = f.read(2)
+    except OSError:
+        return None
+    if magic == b"P5":
+        return read_pgm(path)
+    import cv2
+
+    return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
 
 
 def read_bg_list(path: str):
@@ -103,11 +152,7 @@ class NegReader:
         self.round = 0
         self.lazy = lazy
         self.src_id = -1
-        if imread is None:
-            import cv2
-
-            imread = lambda p: cv2.imread(p, 0)  # noqa: E731
-        self._raw_imread = imread
+        self._raw_imread = imread or imread_gray
         self._src_cache = {}
 
     # decoded-source cache: the round-robin schedule re-reads every

@@ -9,17 +9,17 @@ stage is evaluated on just those windows.
 
 Replaces the reference's per-window early-exit loop
 (lib/src/cascadeclassifier.cpp predictOrderedStump / CascadeClassifierInvoker)
-with TPU-shaped phases:
+with three phases:
 
   1. dense stages 0..K-1 (detect/dense.py) with a host-side survivor count
      after each stage; K is chosen adaptively (first stage whose survivor
      count fits the compaction budget)
   2. patch extraction: each survivor's (win_h+1, win_w+1) integral patch is
      gathered into a (N, P) batch (vmap'd dynamic_slice)
-  3. an MXU tail: per-rect corner-incidence matrices evaluate all remaining
-     trees as matmuls. Raw int32 canvas values exceed float32's exact-int
-     range, so patches are split into four 8-bit limbs — each limb matmul
-     runs at full bf16 MXU speed with float32 accumulation (products are
+  3. a matmul tail: per-rect corner-incidence matrices evaluate all
+     remaining trees as matmuls. Raw int32 canvas values exceed float32's
+     exact-int range, so patches are split into four 8-bit limbs — each
+     limb matmul runs in bf16 with float32 accumulation (products are
      ±1 × [0,255], sums of ≤12 corners: all exact) and the limb results
      recombine into exact int32 rect sums with wrap-safe shifts, matching
      the dense engines' integer arithmetic bit-for-bit. Tilted rects use a
@@ -40,13 +40,10 @@ import jax.numpy as jnp
 from cascadeclassifier_tpu.ops.features import lbp_code_grid
 
 
-def _pack_tail(stages, stage_ids, win_w, win_h, stride=None):
-    """Corner-incidence matrices + per-tree params for the MXU tail.
-
-    stride: patch row stride in the flattened patch vector (defaults to
-    win_w+1 = tightly packed; the pallas extractor emits stride 32)."""
-    if stride is None:
-        stride = win_w + 1
+def _pack_tail(stages, stage_ids, win_w, win_h):
+    """Corner-incidence matrices + per-tree params for the matmul tail
+    (patches flattened row-major with row stride win_w + 1)."""
+    stride = win_w + 1
     P = (win_h + 1) * stride
     trees = []
     any_tilt = False
@@ -119,38 +116,6 @@ def _exact_int_matmul(a_bf16, patches):
     return acc
 
 
-def _exact_int_matmul_rel(a_bf16, patches):
-    """Exact int32 (R, N) = a @ (patches − patches[:, :1]).T for rows of
-    `a` whose signs sum to zero (every rect/cell row does) AND whose true
-    result lies in (−2^23, 2^23) — rect/cell sums are in [0, 255·win²).
-
-    Subtracting each window's top-left corner keeps rect sums unchanged
-    (Σ signs = 0), so THREE 8-bit limbs suffice instead of four (bf16
-    represents integers exactly only up to 256, so limbs cannot be wider
-    than 8 bits): dropping limb 3 computes the result mod 2^24 — rel is
-    an L-shaped prefix difference that can reach ~255·win·(canvas_w +
-    level_h) ≥ 2^24 on large bright frames, but per-limb arithmetic is
-    exact and int32 wraps mod 2^32, so acc ≡ true sum (mod 2^24). The
-    final sign-extension from bit 23 recovers the exact value."""
-    rel = patches - patches[:, :1]
-    acc = None
-    for l in range(3):
-        limb = ((rel >> (8 * l)) & 0xFF).astype(jnp.bfloat16)
-        part = jax.lax.dot_general(
-            a_bf16,
-            limb,
-            (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)
-        part = jax.lax.shift_left(part, jnp.int32(8 * l))
-        acc = part if acc is None else acc + part
-    # sign-extend from 24 bits: maps acc mod 2^24 into [−2^23, 2^23),
-    # which contains the true rect/cell sum
-    return jax.lax.shift_right_arithmetic(
-        jax.lax.shift_left(acc, jnp.int32(8)), jnp.int32(8)
-    )
-
-
 def _limbs_rel(ps):
     """Hoisted 3-limb bf16 planes of (ps − ps[:, :1]).
 
@@ -176,8 +141,12 @@ def _limbs_abs(p):
 def _matmul_limbs(a_bf16, limbs):
     """Exact int32 (R, N) = a @ patches.T over precomputed limb planes —
     same arithmetic (and exactness proofs) as _exact_int_matmul for
-    4-limb absolute planes and _exact_int_matmul_rel for 3-limb relative
-    planes (rows of `a` must sum to zero and true results fit ±2^23)."""
+    4-limb absolute planes. 3-limb relative planes hold
+    (patches − patches[:, :1]): rows of `a` sum to zero (every rect/cell
+    row does), so subtracting each window's corner leaves the result
+    unchanged, and a true result in (−2^23, 2^23) is recovered exactly
+    from its value mod 2^24 by sign extension from bit 23 — rect/cell
+    sums are in [0, 255·win²), far inside."""
     acc = None
     for l, limb in enumerate(limbs):
         part = jax.lax.dot_general(
@@ -250,14 +219,13 @@ def make_tail_fn(packed, start_stage, exact):
     return jax.jit(tail)
 
 
-def _pack_lbp_tail(stages, stage_ids, win_w, win_h, stride=None):
+def _pack_lbp_tail(stages, stage_ids, win_w, win_h):
     """Cell-corner incidence matrix + per-tree params for the LBP tail.
 
     Each stump reads 9 cell sums of its 3×3 grid (lbpfeatures.h:70-83);
     rows 9t..9t+8 of the returned (9T, P) matrix are the ±1 corner
     incidences of tree t's cells in row-major cell order."""
-    if stride is None:
-        stride = win_w + 1
+    stride = win_w + 1
     P = (win_h + 1) * stride
     trees = []
     for si in stage_ids:
@@ -292,7 +260,7 @@ def _pack_lbp_tail(stages, stage_ids, win_w, win_h, stride=None):
 
 def make_lbp_tail_compact_fn(packed, start_stage, exact, n0,
                              shrink_every: int = 2, n_floor: int = 4096):
-    """Re-compacting MXU tail for LBP stump cascades: cell sums via the
+    """Re-compacting matmul tail for LBP stump cascades: cell sums via the
     limb matmul, LBP codes via the 8 comparisons, categorical stumps via
     predicated subset-word selects (no gathers). Same contract as
     make_tail_compact_fn; `inv`/`pt` are accepted and ignored so the
@@ -318,9 +286,7 @@ def make_lbp_tail_compact_fn(packed, start_stage, exact, n0,
         alive = jnp.arange(n) < cnt
         widx = jnp.arange(n, dtype=jnp.int32)
         overflow = jnp.zeros((), bool)
-        # ps: (n, P) int32 patches, or pre-extracted bf16 limb planes
-        # straight from the patchify kernel (emit="limbs_rel")
-        limbs = ps if isinstance(ps, tuple) else _limbs_rel(ps)
+        limbs = _limbs_rel(ps)
         for k, (a_j, subs_j, ll_j, rr_j, sthr_k) in enumerate(per_stage):
             cs = _matmul_limbs(a_j, limbs)  # (9T, N)
             t_k = subs_j.shape[0]
@@ -365,8 +331,7 @@ def _nonzero_1d(alive_i32, n_out):
     """First n_out set positions of a 1-D mask (ascending, clamped).
 
     Sort-based: `index if alive else N` sorted ascending left-packs the
-    survivor positions. One lax.sort beats a binary search whose every
-    round is a random-access gather (~85 ns/element on this TPU)."""
+    survivor positions."""
     n = alive_i32.shape[0]
     keys = jnp.where(
         alive_i32 != 0, jnp.arange(n, dtype=jnp.int32), jnp.int32(n)
@@ -376,31 +341,23 @@ def _nonzero_1d(alive_i32, n_out):
 
 
 def make_tail_compact_fn(packed, start_stage, exact, n0,
-                         shrink_every: int = 2, n_floor: int = 4096,
-                         slot_major: bool = False):
-    """Re-compacting MXU tail: like make_tail_fn, but every
+                         shrink_every: int = 2, n_floor: int = 4096):
+    """Re-compacting matmul tail: like make_tail_fn, but every
     ``shrink_every`` stages the surviving patch rows are gathered into a
     half-sized batch, so late stages run on thousands of windows instead
-    of the full tail capacity (the TPU-shaped equivalent of the per-
-    window early exit the reference's runtime loop gets for free).
+    of the full tail capacity (a batched stand-in for the per-window
+    early exit the reference's runtime loop gets for free).
 
     fn(ps (n0,P) i32, pt, inv (n0,), cnt) ->
         (widx (n_last,) i32  — original tail-row index per survivor slot,
          alive (n_last,) bool, overflow bool)
     Static shrink schedule; ``overflow`` reports any step where live
-    windows exceeded the next capacity (caller falls back).
-
-    slot_major: ps is the emit="limbs_rel_slot" tuple from
-    make_pallas_patchify — rows hold window w' = s·(n0/8) + q for
-    original window w = q·8 + s, patch cells on the stride-32 grid. inv
-    stays in w order (permuted here); returned widx is mapped back to w
-    order, so callers are layout-agnostic."""
+    windows exceeded the next capacity (caller falls back)."""
     stage_ids = list(range(start_stage, len(packed.stages)))
     per_stage = []
     for si in stage_ids:
         a_sum, a_tilt, wts, (thr, ll, rr), _, sthr = _pack_tail(
-            packed.stages, [si], packed.win_w, packed.win_h,
-            stride=32 if slot_major else None,
+            packed.stages, [si], packed.win_w, packed.win_h
         )
         per_stage.append((
             jnp.asarray(a_sum, jnp.bfloat16),
@@ -416,26 +373,11 @@ def make_tail_compact_fn(packed, start_stage, exact, n0,
     def tail(ps, pt, inv, cnt):
         acc_dt = jnp.float64 if exact else jnp.float32
         n = n0
-        if slot_major:
-            # row w' holds original window (w' % n8)·8 + (w' // n8)
-            w_of_row = (
-                (jnp.arange(n, dtype=jnp.int32) % (n // 8)) * 8
-                + jnp.arange(n, dtype=jnp.int32) // (n // 8)
-            )
-            alive = w_of_row < cnt
-            inv = inv.reshape(n // 8, 8).T.reshape(-1)
-            widx = w_of_row
-        else:
-            alive = jnp.arange(n) < cnt
-            widx = jnp.arange(n, dtype=jnp.int32)
+        alive = jnp.arange(n) < cnt
+        widx = jnp.arange(n, dtype=jnp.int32)
         overflow = jnp.zeros((), bool)
-        # ps/pt: (n, P) int32 patches, or pre-extracted bf16 limb planes
-        # from the patchify kernel (emit="limbs_abs"/"limbs_rel"); the
-        # 4-limb absolute planes are exact for untilted stages too
-        if isinstance(ps, tuple):
-            limbs_s = ps
-            limbs_t = pt if has_tilt else None
-        elif has_tilt:
+        # the 4-limb absolute planes are exact for untilted stages too
+        if has_tilt:
             limbs_s, limbs_t = _limbs_abs(ps), _limbs_abs(pt)
         else:
             limbs_s, limbs_t = _limbs_rel(ps), None
@@ -493,9 +435,7 @@ def make_nonzero_fn(out_h, out_w, n_max, grid_rows=None):
     """fn(mask (H,W) bool) -> idx (n_max,) i32 — ascending flat indices of
     set positions, zero-padded.
 
-    Random-access gathers on this TPU cost ~85 ns/element, so a binary
-    search over a 22M-entry flat rank array (the previous design) spends
-    tens of ms in searchsorted rounds. Two-level design instead:
+    Two-level design:
       1. per-row sort of `col if alive else BIG` left-packs each row's
          survivor columns (int16; one batched lax.sort)
       2. queries binary-search the per-row-count cumsum — an (out_h,)
@@ -537,125 +477,11 @@ def make_nonzero_fn(out_h, out_w, n_max, grid_rows=None):
     return jax.jit(fn)
 
 
-def make_block_nonzero_fn(n_rows, out_w, n_max, kb=None):
-    """fn(mask (n_rows, out_w) bool) -> (idx (n_max,) i32, blk_oflow bool)
-
-    Block-compressed single-sort extraction for sparse masks: the (R, W)
-    per-row int16 sort of make_nonzero_fn costs 7–12 ms at 1080p canvas
-    sizes regardless of sparsity, and a searchsorted query phase adds
-    ~7 ms of serial gather rounds at n_max=65536. Here the mask is
-    OR-reduced to 128-lane blocks (one cheap lane reduction), the ≤ kb
-    live block ids are packed with a small 1-D sort, and the live
-    blocks' FLAT SURVIVOR INDICES are sorted directly — one 2M-element
-    sort replaces packing + cumsum + searchsorted + gathers (2.5 ms vs
-    9.2 ms measured on the v5e at the 1080p plane mask).
-
-    Ascending flat indices, zero-padded, identical to make_nonzero_fn.
-    blk_oflow reports live blocks > kb (caller falls back).
-
-    kb: live-block capacity — the flat sort runs over kb·128 keys, so it
-    directly prices this phase. The 1080p bench frames peak at ~1.3k
-    live plane blocks / ~2.1k band blocks (adversarial 40-face content,
-    measured r5), so 1<<13 would leave ~4x headroom — but kb=1<<13
-    reproducibly CRASHES the TPU worker process at the 1080p plane-mask
-    geometry (kernel fault in the compiled program; kb=1<<14 is clean,
-    verified byte-parity vs the C++ oracle both ways, r5). Default stays
-    1<<14. CCTPU_NZ_KB overrides for sweeps — resweep on a newer XLA."""
-    import os
-
-    if kb is None:
-        kb = int(os.environ.get("CCTPU_NZ_KB", str(1 << 14)))
-    WB = 128
-    wpad = -(-out_w // WB) * WB
-    nb_cols = wpad // WB
-    nblocks = n_rows * nb_cols
-    kb = min(kb, nblocks)
-    BIG = jnp.int32(2**31 - 1)
-
-    def fn(mask):
-        m = mask
-        if wpad != out_w:
-            m = jnp.pad(mask, ((0, 0), (0, wpad - out_w)))
-        m8 = m.reshape(nblocks, WB).astype(jnp.int8)
-        bcnt = jnp.sum(m8, axis=1, dtype=jnp.int32)  # (nblocks,)
-        live = (bcnt > 0).astype(jnp.int32)
-        nlive = jnp.sum(live)
-        blk_oflow = nlive > kb
-        bsel = _nonzero_1d(live, kb)  # ascending live block ids (clamped)
-        valid = jnp.arange(kb, dtype=jnp.int32) < nlive
-        sub = jnp.take(m8, bsel, axis=0) * valid[:, None].astype(jnp.int8)
-        base = (bsel // nb_cols) * out_w + (bsel % nb_cols) * WB  # (kb,)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (kb, WB), 1)
-        keys = jnp.where(sub != 0, base[:, None] + lane, BIG)
-        flat = jax.lax.sort(keys.reshape(-1))
-        if kb * WB < n_max:
-            # Small canvases (e.g. shelf-packed plans) can have fewer than
-            # n_max candidate slots in the kb live blocks; pad with the BIG
-            # sentinel so the slice below is always n_max wide.
-            flat = jnp.pad(flat, (0, n_max - kb * WB), constant_values=BIG)
-        total = jnp.sum(bcnt)
-        q = jnp.arange(n_max, dtype=jnp.int32)
-        return jnp.where(q < total, flat[:n_max], 0), blk_oflow
-
-    return jax.jit(fn)
-
-
-def make_sparse_nonzero_fn(out_h, out_w, n_max, k_rows, grid_rows=None):
-    """fn(mask (H,W) bool) -> (idx (n_max,) i32, total i32, row_oflow bool)
-
-    Row-compressed variant of make_nonzero_fn for VERY sparse masks (final
-    detections): the per-row int16 sort — the dominant cost of the full
-    version (~21 ms at 1080p) — runs only on the ≤ k_rows rows that
-    actually contain survivors. Per-row counts (one cheap reduction over
-    the mask) select the live rows; row_oflow reports live rows > k_rows
-    (caller falls back to a full extraction). Ascending flat indices —
-    identical order to make_nonzero_fn."""
-    assert out_w < 2**15
-    if grid_rows is not None:
-        gr = np.asarray(grid_rows, np.int32)
-        n_rows = len(gr)
-        gr_j = jnp.asarray(gr)
-    else:
-        n_rows = out_h
-
-    def fn(mask):
-        if grid_rows is not None:
-            mask = jnp.take(mask, gr_j, axis=0)
-        rcnt = jnp.sum(mask, axis=1, dtype=jnp.int32)  # (n_rows,)
-        live = (rcnt > 0).astype(jnp.int32)
-        nlive = jnp.sum(live)
-        row_oflow = nlive > k_rows
-        rsel = _nonzero_1d(live, k_rows)  # ascending live-row ids (clamped)
-        valid = jnp.arange(k_rows, dtype=jnp.int32) < nlive
-        sub = jnp.take(mask, rsel, axis=0) & valid[:, None]
-        keys = jnp.where(
-            sub,
-            jax.lax.broadcasted_iota(jnp.int16, (k_rows, out_w), 1),
-            jnp.int16(out_w),
-        )
-        packed = jax.lax.sort(keys, dimension=1)  # survivors first
-        scnt = jnp.take(rcnt, rsel) * valid
-        scum = jnp.cumsum(scnt)  # inclusive
-        total = scum[-1]
-        q = jnp.arange(n_max, dtype=jnp.int32)
-        rowq = jnp.searchsorted(scum, q, side="right").astype(jnp.int32)
-        rowq = jnp.minimum(rowq, k_rows - 1)
-        jq = q - (jnp.take(scum, rowq) - jnp.take(scnt, rowq))
-        colq = packed[rowq, jq].astype(jnp.int32)
-        srow = jnp.take(rsel, rowq)
-        out_row = jnp.take(gr_j, srow) if grid_rows is not None else srow
-        idx = out_row * out_w + colq
-        idx = jnp.where(q < total, idx, 0).astype(jnp.int32)
-        return idx, total, row_oflow
-
-    return jax.jit(fn)
-
-
 def make_patchify_fn(win_w, win_h, need_tilt):
     """fn(sum2d, tilt2d, r (N,), c (N,)) -> ((N,P) i32, (N,P) i32|None)
 
-    XLA fallback (vmap'd dynamic_slice). ~4 ns/element — use
-    make_pallas_patchify on TPU."""
+    Gathers each survivor's (win_h+1, win_w+1) integral patch (vmapped
+    dynamic_slice)."""
     ph, pw = win_h + 1, win_w + 1
 
     def patchify(canvas, r, c):
@@ -670,244 +496,3 @@ def make_patchify_fn(win_w, win_h, need_tilt):
         return ps, pt
 
     return jax.jit(run)
-
-
-def make_pallas_patchify(win_w, win_h, canvas_h, canvas_w, n,
-                         interpret=False, g_windows=256, d_inflight=48,
-                         emit="i32"):
-    """Pallas patch extractor:
-    fn(canvas_pad, r, c, cnt) -> (n, (win_h+1)*(win_w+1)).
-
-    emit: "i32" returns the int32 patch matrix; "limbs_rel" /
-    "limbs_abs" return the 3-limb relative / 4-limb absolute bf16 limb
-    planes the MXU tails consume (_limbs_rel/_limbs_abs semantics) —
-    fused with the kernel-output transpose so the (n, P) int32
-    intermediate is never materialized in HBM.
-
-    Each window's (ph, pw) integral patch is DMA'd from HBM (double-
-    buffered; aligned base + row-switch/lane-roll because Mosaic supports
-    only 8-aligned sublane offsets and no dynamic lane offsets, see
-    pallas_stage.py). Window coordinates stay in HBM and are DMA'd into
-    SMEM per grid step. Eight windows share each 256-lane output group
-    (one 32-lane slot each, a single composed roll per window), so the
-    kernel emits (n/8 * PH8, 256); plain XLA ops then transpose/slice to
-    the tight (n, ph*pw) layout the MXU tail expects.
-
-    `cnt` (device scalar) marks the number of REAL windows: slots past it
-    skip both the DMA and the extraction arithmetic, so the kernel's cost
-    scales with actual survivors, not the static capacity — the caller
-    can size n generously and pad freely. canvas_pad must come from
-    pad_canvas_for_patchify."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    ph, pw = win_h + 1, win_w + 1
-    assert pw <= 32 and ph <= 32, "pallas patchify supports windows <= 31"
-    PH8 = -(-ph // 8) * 8
-    # HBM slices must be 8-row aligned: base + phase room. The DMA only
-    # needs ph + 7 rows (phase ≤ 7); PH8 + 8 when the roll's kept rows
-    # would otherwise wrap
-    rows = max(PH8, -(-(ph + 7) // 8) * 8)
-    G = g_windows if n >= g_windows else n  # windows per grid step
-    D = min(d_inflight, G)  # in-flight canvas DMAs (hides per-DMA latency)
-    RCW = max(256, 1 << int(np.ceil(np.log2(2 * G + 1))))  # rc row lanes
-    assert n % G == 0
-
-    def kernel(cnt_ref, rc_hbm, canvas_hbm, out_hbm, rcbuf, bufs, pbuf,
-               sem_rc, sems, sem_out):
-        g = pl.program_id(0)
-        cnt = cnt_ref[0]
-
-        def block_body():
-            # the coordinate DMA sits INSIDE the live guard: with it
-            # outside, every capacity grid step paid the DMA issue+wait
-            # (~6 µs/step — measured as a ~6 ms cnt-independent floor at
-            # the 1080p tail capacity)
-            cp_rc = pltpu.make_async_copy(
-                rc_hbm.at[pl.ds(g * 8, 8), :], rcbuf, sem_rc
-            )
-            cp_rc.start()
-            cp_rc.wait()
-            # no per-window validity conds: callers zero r/c past cnt, so
-            # every slot's DMA is in-bounds and slots past cnt just
-            # extract garbage the tail masks off via its own cnt bound —
-            # the per-window cond pair cost more than the extraction
-            def mk_cp(i):
-                rq = pl.multiple_of((rcbuf[0, i] // 8) * 8, 8)
-                cq = pl.multiple_of((rcbuf[0, G + i] // 128) * 128, 128)
-                return pltpu.make_async_copy(
-                    canvas_hbm.at[pl.ds(rq, rows), pl.ds(cq, 256)],
-                    bufs.at[i % D],
-                    sems.at[i % D],
-                )
-
-            row_i = jax.lax.broadcasted_iota(jnp.int32, (PH8, 256), 0)
-            col_i = jax.lax.broadcasted_iota(jnp.int32, (PH8, 256), 1)
-
-            for i in range(D - 1):
-                mk_cp(i).start()
-            octet = None
-            for i in range(G):
-                if i + D - 1 < G:
-                    mk_cp(i + D - 1).start()
-                slot = i % 8
-                mk_cp(i).wait()
-                r = rcbuf[0, i]
-                c = rcbuf[0, G + i]
-                rq = (r // 8) * 8
-                cq = (c // 128) * 128
-                # dynamic sublane roll brings patch row 0 to sublane
-                # 0 (phase ≤ 7 and ph ≤ rows−7, so kept rows never
-                # wrap) — one roll instead of an 8-way predicated
-                # slice switch
-                v = pltpu.roll(
-                    bufs[i % D], (rows - (r - rq)) % rows, 0
-                )[:PH8, :]
-                # one composed roll lands the patch at lanes
-                # [32·slot, 32·slot+pw) — 32·7+25 < 256, no wrap
-                v = pltpu.roll(v, (256 - (c - cq) + 32 * slot) % 256, 1)
-                keep = (
-                    (row_i < ph)
-                    & (col_i >= 32 * slot)
-                    & (col_i < 32 * slot + pw)
-                    # slots past cnt emit zeros — a broadcast compare in
-                    # the existing select, NOT a per-window cond pair
-                    & (g * G + i < cnt)
-                )
-                v = jnp.where(keep, v, 0)
-                octet = v if slot == 0 else octet + v
-                if slot == 7:
-                    q = i // 8
-                    pbuf[q * PH8 : (q + 1) * PH8, :] = octet
-
-            cp_out = pltpu.make_async_copy(
-                pbuf,
-                out_hbm.at[pl.ds(g * (G // 8) * PH8, (G // 8) * PH8), :],
-                sem_out,
-            )
-            cp_out.start()
-            cp_out.wait()
-
-        # whole-block skip: grid steps past the survivor count do no
-        # extraction arithmetic and no output DMA (their out rows are
-        # stale garbage the tail masks off via its own cnt bound)
-        jax.lax.cond(g * G < cnt, block_body, lambda: None)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n // G,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            # coord block is (8, RCW): row 0 carries the data, the other
-            # rows pad the HBM slice to the (8, 128) tile (unaligned or
-            # narrower HBM->SMEM DMAs fail the Mosaic compile)
-            pltpu.SMEM((8, RCW), jnp.int32),
-            pltpu.VMEM((D, rows, 256), jnp.int32),
-            pltpu.VMEM(((G // 8) * PH8, 256), jnp.int32),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA((D,)),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    call = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n // 8 * PH8, 256), jnp.int32),
-        interpret=interpret,
-    )
-
-    def run(canvas_pad, r, c, cnt=None):
-        if cnt is None:
-            cnt = jnp.int32(n)
-        # one (8, RCW) block per grid step, data in row 0:
-        # [r_0..r_{G-1}, c_0..c_{G-1}, 0...]; cnt rides as a scalar-
-        # prefetch operand so dead grid steps skip even the coord DMA
-        row = jnp.concatenate(
-            [
-                r.reshape(-1, G),
-                c.reshape(-1, G),
-                jnp.zeros((n // G, RCW - 2 * G), jnp.int32),
-            ],
-            axis=1,
-        ).astype(jnp.int32)
-        rc = jnp.zeros((n // G, 8, RCW), jnp.int32).at[:, 0, :].set(row)
-        rc = rc.reshape(n // G * 8, RCW)
-        cnt_a = jnp.asarray(cnt, jnp.int32).reshape(1)
-        raw = call(cnt_a, rc, canvas_pad)            # (n/8*PH8, 256)
-        if emit == "limbs_rel_slot":
-            # Slot-major limb planes WITHOUT the octet transpose: the
-            # (n/8, PH8, 8, 32) → (n/8, 8, PH8, 32) relayout costs ~6 ms
-            # at 1080p survivor capacity (measured; XLA moves the 32-lane
-            # blocks at ~11% of HBM bandwidth) while 8 lane-slices +
-            # concat run at full rate. The price is a permuted window
-            # order — row w' = s·(n/8) + q holds original window
-            # w = q·8 + s — and a stride-32 patch layout p' = i·32 + j;
-            # make_tail_compact_fn(slot_major=True) builds its corner
-            # matrices on that grid and maps widx back (_pack_tail's
-            # `stride`).
-            n8 = n // 8
-            corner = raw[::PH8, ::32]                # (n8, 8) patch[0,0]
-            outs = [[], [], []]
-            for s in range(8):
-                sl = jax.lax.slice(
-                    raw, (0, 32 * s), (raw.shape[0], 32 * s + 32)
-                ).reshape(n8, PH8, 32)
-                rel = (sl - corner[:, s][:, None, None])[:, :ph, :]
-                rel = rel.reshape(n8, ph * 32)
-                for l in range(3):
-                    outs[l].append(
-                        ((rel >> (8 * l)) & 0xFF).astype(jnp.bfloat16)
-                    )
-            return tuple(jnp.concatenate(o, axis=0) for o in outs)
-        raw = raw.reshape(n // 8, PH8, 8, 32)
-        raw = jnp.transpose(raw, (0, 2, 1, 3))       # (n/8, 8, PH8, 32)
-        raw = raw.reshape(n, PH8, 32)[:, :ph, :pw]
-        raw = raw.reshape(n, ph * pw)
-        if emit == "i32":
-            return raw
-        if emit == "limbs_rel":
-            # fused transpose + relative 3-limb extraction: the limb
-            # selects fold into the transpose's output loop, so the
-            # (n, P) int32 patch matrix never hits HBM
-            rel = raw - raw[:, :1]
-            return tuple(
-                ((rel >> (8 * l)) & 0xFF).astype(jnp.bfloat16)
-                for l in range(3)
-            )
-        assert emit == "limbs_abs"
-        return tuple(
-            ((raw >> (8 * l)) & 0xFF).astype(jnp.bfloat16)
-            for l in range(4)
-        )
-
-    return jax.jit(run), (
-        rows, ph * 32 if emit == "limbs_rel_slot" else ph * pw
-    )
-
-
-def padded_canvas_shape(H, W, win_h, min_h: int = 0, min_w: int = 0,
-                        row_mult: int = 8):
-    """Padded canvas geometry for aligned patchify/front DMAs.
-
-    row_mult: row-count multiple (8 for the DMA alignment floor; the
-    single-pass Pallas integral kernel wants its row-block size)."""
-    ph = win_h + 1
-    rows = -(-(ph + 8) // 8) * 8
-    HP = -(-max(H + rows, min_h) // row_mult) * row_mult
-    WP = -(-max(W + 256, min_w) // 128) * 128
-    return HP, WP
-
-
-def pad_canvas_for_patchify(canvas, win_h, min_h: int = 0, min_w: int = 0):
-    """Zero-pad a canvas so per-window aligned DMAs stay in bounds.
-
-    min_h/min_w: optional extra floor on the padded shape (e.g. the static
-    front kernel's tile+halo geometry) so one padded canvas serves every
-    DMA consumer."""
-    H, W = canvas.shape
-    HP, WP = padded_canvas_shape(H, W, win_h, min_h, min_w)
-    return jnp.pad(canvas, ((0, HP - H), (0, WP - W)))

@@ -1,18 +1,17 @@
 """Dense (gather-free) cascade evaluation over the pyramid canvas.
 
-TPU XLA gathers run at ~1 element/cycle, so any per-window gather design is
-two orders of magnitude off the VPU's throughput. Instead, every rectangle
-sum is computed for *all* window positions at once as a combination of four
-statically-shifted 2D slices of the canvas integral image — pure vector
-arithmetic at full VPU width. A window at scaled coords (x, y) of level s
-lives at canvas position (block_top[s] + y, x), so one shifted slice serves
-every pyramid level simultaneously.
+Every rectangle sum is computed for *all* window positions at once as a
+combination of four statically-shifted 2D slices of the canvas integral
+image — plain elementwise arithmetic that XLA fuses into one pass per
+stage. A window at scaled coords (x, y) of level s lives at canvas
+position (block_top[s] + y, x), so one shifted slice serves every pyramid
+level simultaneously.
 
-This is the TPU-native replacement for the reference's per-window
-early-exit loop (SURVEY §3.2): stages are evaluated densely under a
-survivor mask; the mask does not reduce dense work (that optimization is
-the planned Pallas tile-level early-exit kernel), but it keeps the math
-identical to the OpenCV runtime.
+This is the dense replacement for the reference's per-window early-exit
+loop (SURVEY §3.2): stages are evaluated densely under a survivor mask;
+the mask does not reduce dense work (the survivor tail of
+detect/compact.py does), but it keeps the math identical to the OpenCV
+runtime.
 """
 
 from __future__ import annotations
@@ -32,92 +31,6 @@ def dense_rect_sum(c2d, rx, ry, w, h, out_h, out_w):
         - c2d[ry + h : ry + h + out_h, rx : rx + out_w]
         + c2d[ry + h : ry + h + out_h, rx + w : rx + w + out_w]
     )
-
-
-def plane_rect_sum(planes, rx, ry, w, h, out_h2, out_w2):
-    """dense_rect_sum at every EVEN (row, col) anchor, reading the four
-    canvas parity planes (planes[a, b] = canvas[a::2, b::2]): the corner
-    at static offset (dy, dx) from anchor (2i, 2j) lives at
-    planes[dy & 1, dx & 1][i + (dy >> 1), j + (dx >> 1)] — every read is
-    a dense slice of a plane (no strided access)."""
-
-    def sl(dy, dx):
-        p = planes[dy & 1, dx & 1]
-        return p[dy >> 1 : (dy >> 1) + out_h2, dx >> 1 : (dx >> 1) + out_w2]
-
-    return (
-        sl(ry, rx)
-        - sl(ry, rx + w)
-        - sl(ry + h, rx)
-        + sl(ry + h, rx + w)
-    )
-
-
-def plane_rect_sum_oo(p_oo, rx, ry, w, h, out_h2, out_w2):
-    """plane_rect_sum when all four corners are (odd, odd): reads the
-    single (1, 1) parity plane p_oo = canvas[1::2, 1::2]. Used by the
-    variance gate for even window dims, whose sq-integral corners are
-    (1, 1), (1, win_w−1), (win_h−1, 1), (win_h−1, win_w−1) — all odd —
-    so the canvas split never materializes the other three sq planes."""
-    assert (rx & 1) and (ry & 1) and ((rx + w) & 1) and ((ry + h) & 1)
-
-    def sl(dy, dx):
-        return p_oo[
-            dy >> 1 : (dy >> 1) + out_h2, dx >> 1 : (dx >> 1) + out_w2
-        ]
-
-    return (
-        sl(ry, rx)
-        - sl(ry, rx + w)
-        - sl(ry + h, rx)
-        + sl(ry + h, rx + w)
-    )
-
-
-def plane_variance_gate(planes_sum, planes_sq, win_w, win_h, out_h2, out_w2):
-    """dense_variance_gate on the (even, even) anchor plane.
-
-    planes_sq: the four sq parity planes (2, 2, H2, W2), or — for even
-    win_w/win_h — just the (1, 1) plane as a 2-D array."""
-    rw, rh = win_w - 2, win_h - 2
-    area = rw * rh
-    with jax.enable_x64(True):
-        vs = plane_rect_sum(
-            planes_sum, 1, 1, rw, rh, out_h2, out_w2
-        ).astype(jnp.int64)
-        if planes_sq.ndim == 2:
-            vq = plane_rect_sum_oo(planes_sq, 1, 1, rw, rh, out_h2, out_w2)
-        else:
-            vq = plane_rect_sum(planes_sq, 1, 1, rw, rh, out_h2, out_w2)
-        nf2 = jnp.int64(area) * vq - vs * vs
-        pos = nf2 > 0
-        nf = jnp.sqrt(jnp.where(pos, nf2, 1).astype(jnp.float64))
-        inv_nf = (1.0 / nf).astype(jnp.float32)
-        ok = pos & ((float(area) * inv_nf.astype(jnp.float64)) < 1e-1)
-    return ok, jnp.where(ok, inv_nf, jnp.float32(1.0))
-
-
-def plane_stage_haar(planes_sum, stage, out_h2, out_w2, inv_nf):
-    """dense_stage_haar (f32, untilted stumps) on the anchor plane."""
-    acc = jnp.zeros((out_h2, out_w2), jnp.float32)
-    for i in range(stage.ntrees):
-        raw = None
-        for r in range(3):
-            wt = float(stage.weights[i, r])
-            if wt == 0.0:
-                continue
-            rx, ry, w, h = (int(v) for v in stage.feat_rects[i, r])
-            term = plane_rect_sum(
-                planes_sum, rx, ry, w, h, out_h2, out_w2
-            ).astype(jnp.float32) * np.float32(wt)
-            raw = term if raw is None else raw + term
-        val = raw * inv_nf
-        acc = acc + jnp.where(
-            val < np.float32(stage.thr[i]),
-            jnp.float32(stage.left_leaf[i]),
-            jnp.float32(stage.right_leaf[i]),
-        )
-    return acc
 
 
 def dense_tilted_rect_sum(t2d, rx, ry, w, h, out_h, out_w):
@@ -161,9 +74,8 @@ def dense_stage_haar(sum2d, tilt2d, stage, out_h, out_w, inv_nf, exact=True):
     """Σ leaves over one stage's stump trees at every position.
 
     exact=True accumulates the stage sum in float64 like the OpenCV runtime
-    (bit-level parity); exact=False accumulates in float32 (~4× faster on
-    the VPU, identical results except windows within ~1e-6 of a stage
-    threshold)."""
+    (bit-level parity); exact=False accumulates in float32 (identical
+    results except windows within ~1e-6 of a stage threshold)."""
     acc_dt = jnp.float64 if exact else jnp.float32
 
     def body():

@@ -1,8 +1,8 @@
-"""Multi-scale pyramid plan: static geometry for the TPU detector.
+"""Multi-scale pyramid plan: static geometry for the detector.
 
 The reference pipeline (OpenCV ``detectMultiScale``; consumed by
 tools/detection/Cpp/main.cpp:45) processes one scaled image at a time with a
-branchy per-window loop. The TPU re-design packs *every* pyramid level into
+branchy per-window loop. This re-design packs *every* pyramid level into
 one integral-image **canvas** so a single fused XLA program handles all
 scales per frame:
 
@@ -67,19 +67,6 @@ class PyramidPlan:
     row_step2: np.ndarray  # (canvas_h,) bool — level has ystep == 2
     row_maxc: np.ndarray  # (canvas_h,) int32 — last valid window column
     row_scale: np.ndarray  # (canvas_h,) int32 — level id of the row (-1 pad)
-    # shelf-packed band layout (pack_band=True): ystep-1 levels sit side
-    # by side on shared row shelves instead of each taking a full-width
-    # row block — the fused static-front engine's canvas-proportional
-    # costs (integrals, plane split, band prep/front, masks) drop ~35%
-    # at 1080p. Integral 4-corner differences localize, so a level's
-    # rect sums are exact wherever its block lands.
-    packed: bool = False
-    block_left: np.ndarray | None = None  # (S,) canvas col of the zero col
-    stack_top: np.ndarray | None = None  # (S,) row in the resize row-pass
-    stack_h: int = 0  # rows of the row-pass space (= canvas_h unpacked)
-    lvl2d: np.ndarray | None = None  # (canvas_h, canvas_w) int16 level map
-    row_is_plane: np.ndarray | None = None  # (canvas_h,) bool ystep-2 rows
-    grid2d: np.ndarray | None = None  # (out_h, out_w) bool anchor grid
 
     @property
     def num_positions(self):
@@ -114,7 +101,6 @@ def build_plan(
     min_size: tuple | None = None,
     max_size: tuple | None = None,
     force_ystep: int | None = None,
-    pack_band: bool = False,
 ) -> PyramidPlan:
     scales = opencv_scales(
         img_w, img_h, win_w, win_h, scale_factor, min_size, max_size
@@ -143,63 +129,19 @@ def build_plan(
     block_rows = scaled_h + 1
     # EVEN block_top for ystep-2 levels: their grid anchors sit at
     # block_top + 2k, so an even origin puts every step-2 anchor on an
-    # even canvas row — the parity-plane dense front (pallas_front.py)
-    # then evaluates only the (even, even) anchor plane, 4x fewer
-    # positions. Costs at most one garbage pad row per level.
-    #
-    # stack_top: the level's row in the RESIZE ROW-PASS space (the tall
-    # H = R @ img intermediate). Identical to block_top for unpacked
-    # plans; with pack_band the canvas placement diverges while the row
-    # pass keeps the simple vertical stack.
-    stack_top = np.zeros(S, np.int32)
+    # even canvas row. Costs at most one garbage pad row per level.
     block_top = np.zeros(S, np.int32)
-    block_left = np.zeros(S, np.int32)
     top = 0
     for s in range(S):
         if ystep[s] == 2 and (top & 1):
             top += 1
-        stack_top[s] = top
+        block_top[s] = top
         top += int(block_rows[s])
-    stack_h = top
+    canvas_h = top
 
-    if not pack_band:
-        block_top[:] = stack_top
-        canvas_h = stack_h
-    else:
-        # shelf packing: ystep-2 levels keep the vertical stack (each is
-        # too wide to pair within canvas_w); ystep-1 levels go first-fit
-        # onto shared shelves. Levels arrive in descending size, so any
-        # level fits the height of any earlier shelf and only the width
-        # check matters. A level's integral block is (h+1, w+1) with its
-        # zero row/col at (block_top, block_left); window rect reads
-        # never leave the block, so blocks can abut with no guard.
-        top = 0
-        shelves = []  # [y0, x_cursor]
-        for s in range(S):
-            hb, wb = int(block_rows[s]), int(scaled_w[s]) + 1
-            if ystep[s] == 2:
-                if top & 1:
-                    top += 1
-                block_top[s] = top
-                top += hb
-                continue
-            for sh in shelves:
-                x0 = -(-sh[1] // 2) * 2
-                if x0 + wb <= canvas_w:
-                    block_top[s], block_left[s] = sh[0], x0
-                    sh[1] = x0 + wb
-                    break
-            else:
-                y0 = -(-top // 2) * 2
-                block_top[s], block_left[s] = y0, 0
-                shelves.append([y0, wb])
-                top = y0 + hb
-        canvas_h = top
-
-    # per-row resize gather tables (legacy: the MXU matmul resize in
-    # detect/detector.py::_resize_matrices superseded them at runtime;
-    # kept for unpacked plans — with pack_band, shared shelf rows have no
-    # single per-row source mapping, so they stay zero)
+    # per-row resize gather tables (the matmul resize in
+    # detect/detector.py::_resize_matrices replaced them at runtime; the
+    # resize tests still read them)
     sy0 = np.zeros(canvas_h, np.int32)
     cy = np.zeros(canvas_h, np.int32)
     sx0 = np.zeros((canvas_h, canvas_w), np.int16)
@@ -210,14 +152,11 @@ def build_plan(
 
     for s in range(S):
         t = int(block_top[s])
-        le = int(block_left[s])
         h_s, w_s = int(scaled_h[s]), int(scaled_w[s])
         ys, cys = _axis_tab(img_h, h_s)
         xs, cxs = _axis_tab(img_w, w_s)
-        sx0[t + 1 : t + h_s + 1, le + 1 : le + w_s + 1] = xs[None, :]
-        cx[t + 1 : t + h_s + 1, le + 1 : le + w_s + 1] = cxs[None, :]
-        if pack_band and ystep[s] == 1:
-            continue
+        sx0[t + 1 : t + h_s + 1, 1 : w_s + 1] = xs[None, :]
+        cx[t + 1 : t + h_s + 1, 1 : w_s + 1] = cxs[None, :]
         is_top[t] = True
         top_of_row[t : t + h_s + 1] = t
         row_w[t + 1 : t + h_s + 1] = w_s
@@ -238,16 +177,8 @@ def build_plan(
     # (nstripes=10: row 144 of prH=145 visited), 137x101 (nstripes=4: last
     # odd rows NOT visited) and 64x55 (nstripes=2).
     nstripes = int(np.ceil((int(scaled_w[0]) + 1 - win_w) / 32.0))
-    out_h = max(canvas_h - win_h, 0)
-    out_w = max(canvas_w - win_w, 0)
-    lvl2d = row_is_plane = grid2d = None
-    if pack_band:
-        lvl2d = np.full((canvas_h, canvas_w), -1, np.int16)
-        row_is_plane = np.zeros(canvas_h, bool)
-        grid2d = np.zeros((out_h, out_w), bool)
     for s in range(S):
         t, h_s, w_s = int(block_top[s]), int(scaled_h[s]), int(scaled_w[s])
-        le = int(block_left[s])
         step = int(ystep[s])
         if w_s < win_w or h_s < win_h:
             continue
@@ -257,19 +188,6 @@ def build_plan(
         stripe = max(-(-(pr_h // step) // max(nstripes, 1)), 1) * step
         y_bound = min(max(nstripes, 1) * stripe, pr_h)
         ys = np.arange(0, y_bound, step)
-        if pack_band:
-            lvl2d[t : t + h_s + 1, le : le + w_s + 1] = s
-            if step == 2:
-                row_is_plane[t : t + h_s + 1] = True
-            xs = le + np.arange(0, w_s - win_w + 1, step)
-            grid2d[np.ix_(t + ys, xs)] = True
-        if pack_band and step == 1:
-            # shared shelf rows: the per-row descriptors cannot express
-            # side-by-side levels — consumers use grid2d/lvl2d instead.
-            # row_is_grid keeps its "row holds ≥1 grid anchor" meaning
-            # (the sparse extractors use it to compress rows).
-            row_is_grid[t + ys] = True
-            continue
         row_is_grid[t + ys] = True
         row_step2[t : t + h_s + 1] = step == 2
         row_maxc[t : t + h_s + 1] = w_s - win_w
@@ -300,11 +218,4 @@ def build_plan(
         row_step2=row_step2,
         row_maxc=row_maxc,
         row_scale=row_scale,
-        packed=pack_band,
-        block_left=block_left,
-        stack_top=stack_top,
-        stack_h=stack_h,
-        lvl2d=lvl2d,
-        row_is_plane=row_is_plane,
-        grid2d=grid2d,
     )

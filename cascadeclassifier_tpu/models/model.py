@@ -3,7 +3,7 @@
 Pure-Python dataclasses mirroring the on-disk ``cascade.xml`` schema the
 reference writes (cascadeclassifier.cpp:439-532, boost.cpp:520-532,
 o_cvcascadeboosttree.cpp:41-93) and OpenCV's runtime detector consumes.
-The IR is the contract between the trainer, the XML I/O layer and the TPU
+The IR is the contract between the trainer, the XML I/O layer and the
 detector; device-packed forms are derived from it in detect/packing.py.
 """
 

@@ -9,7 +9,7 @@ cascade XML index into this order):
   - HOG  : reference traincascade/lib/src/HOGfeatures.cpp:67-106
 
 Evaluators are pure JAX functions over batches of flattened per-sample
-integral images — the TPU-native replacement for the reference's
+integral images — the batched replacement for the reference's
 one-(feature, sample)-at-a-time ``CvFeatureEvaluator::operator()``
 (traincascade_features.h:155-188). A feature response for a whole batch is a
 handful of gathers along the flat pixel axis plus elementwise math, so the
@@ -23,6 +23,8 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from cascadeclassifier_tpu.ops.integral import normalized_response
 
 HAAR_BASIC, HAAR_CORE, HAAR_ALL = 0, 1, 2
 _HAAR_MODE_NAMES = {"BASIC": HAAR_BASIC, "CORE": HAAR_CORE, "ALL": HAAR_ALL}
@@ -355,11 +357,13 @@ def eval_haar(
         rs_ti = rectsums(tilted_flat)
         rs = jnp.where(tilted_mask[None, :, None], rs_ti, rs_up)
 
+    # HIGHEST: a default-precision f32 contraction may run in TF32 (or
+    # bf16 passes) on an accelerator, which drops rect-sum bits
     resp = jnp.einsum(
-        "nfr,fr->nf", rs.astype(jnp.float32), weights
+        "nfr,fr->nf", rs.astype(jnp.float32), weights,
+        precision=jax.lax.Precision.HIGHEST,
     )
-    nf = normfactor[:, None]
-    return jnp.where(nf != 0.0, resp / jnp.where(nf == 0.0, 1.0, nf), 0.0)
+    return normalized_response(resp, normfactor[:, None])
 
 
 # --------------------------------------------------------------------------

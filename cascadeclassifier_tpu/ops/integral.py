@@ -1,6 +1,6 @@
 """Batched integral-image kernels (sum, squared-sum, tilted 45°).
 
-TPU-native equivalents of ``cv::integral`` as used by the reference
+JAX equivalents of ``cv::integral`` as used by the reference
 evaluators (reference: traincascade/lib/src/haarfeatures.cpp:100-114,
 lbpfeatures.cpp:22-28). All functions are batched over a leading sample axis
 and jit-friendly (static shapes, no Python control flow on traced values).
@@ -107,95 +107,6 @@ def integral_all(img: jax.Array, need_tilted: bool = False, sq_dtype=jnp.int64):
     return s, sq, t
 
 
-def _tri_bf16(blk: int, lower: bool) -> jax.Array:
-    import numpy as np
-
-    i = np.arange(blk)
-    t = (i[:, None] <= i[None, :]) if not lower else (i[:, None] >= i[None, :])
-    return jnp.asarray(t.astype(np.float32), jnp.bfloat16)
-
-
-def cumsum2d_mxu(x: jax.Array, axis: int, in_bits: int,
-                 blk: int = 256) -> jax.Array:
-    """Inclusive int32-wraparound cumsum along one axis via MXU limb
-    matmuls — bit-identical to ``jnp.cumsum(x, axis, dtype=int32)`` for
-    non-negative ``x < 2**in_bits``.
-
-    XLA's native cumsum lowers to log-depth vector passes over the whole
-    array (HBM-bound at canvas sizes); this formulation splits the input
-    into 8-bit limbs (exact in bfloat16), runs a (blk, blk) triangular
-    matmul per limb per block (every partial sum ≤ 255·blk < 2^24, exact
-    in the MXU's f32 accumulation), recombines limbs with int32
-    wraparound shifts, and adds the tiny inter-block carry. The MXU does
-    the O(n·blk) work at matmul rate, turning the canvas integral from a
-    bandwidth problem into a (cheap) compute one."""
-    assert x.dtype == jnp.int32 and x.ndim == 2 and axis in (0, 1)
-    nlimb = -(-in_bits // 8)
-    n = x.shape[axis]
-    nb = -(-n // blk)
-    pad = nb * blk - n
-    if axis == 1:
-        if pad:
-            x = jnp.pad(x, ((0, 0), (0, pad)))
-        xb = x.reshape(x.shape[0], nb, blk)
-        T = _tri_bf16(blk, lower=False)  # T[k, j] = k <= j
-        comb = None
-        for k in range(nlimb):
-            limb = ((xb >> (8 * k)) & 0xFF).astype(jnp.bfloat16)
-            pref = jax.lax.dot_general(
-                limb, T, (((2,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ).astype(jnp.int32)
-            term = jax.lax.shift_left(pref, jnp.int32(8 * k)) if k else pref
-            comb = term if comb is None else comb + term
-        tot = comb[:, :, -1]
-        carry = jnp.cumsum(tot, axis=1, dtype=jnp.int32) - tot
-        comb = comb + carry[:, :, None]
-        out = comb.reshape(x.shape[0], nb * blk)
-        return out[:, :n] if pad else out
-    # axis == 0: row blocks, no transpose — T2[i, k] = k <= i contracts
-    # the block-row axis in place
-    if pad:
-        x = jnp.pad(x, ((0, pad), (0, 0)))
-    xb = x.reshape(nb, blk, x.shape[1])
-    T2 = _tri_bf16(blk, lower=True)
-    comb = None
-    for k in range(nlimb):
-        limb = ((xb >> (8 * k)) & 0xFF).astype(jnp.bfloat16)
-        # (blk_i, blk_k) @ (nb, blk_k, W) -> (nb, blk_i, W)
-        pref = jax.lax.dot_general(
-            T2, limb, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (blk_i, nb, W)
-        pref = jnp.swapaxes(pref, 0, 1).astype(jnp.int32)
-        term = jax.lax.shift_left(pref, jnp.int32(8 * k)) if k else pref
-        comb = term if comb is None else comb + term
-    tot = comb[:, -1, :]
-    carry = jnp.cumsum(tot, axis=0, dtype=jnp.int32) - tot
-    comb = comb + carry[:, None, :]
-    out = comb.reshape(nb * blk, x.shape[1])
-    return out[:n] if pad else out
-
-
-def integral2d_mxu(px: jax.Array, need_sq: bool, w_real: int):
-    """(H, W) int32 pixel canvas (values 0..255) → inclusive 2D integral
-    (and squared integral) with int32 wraparound, bit-identical to the
-    chained ``jnp.cumsum`` formulation in detect/detector._build_canvas.
-
-    w_real: true row width bound (for the row-pass limb count)."""
-    import numpy as np
-
-    row_bits = int(np.ceil(np.log2(255 * w_real + 1)))
-    c1 = cumsum2d_mxu(px, 1, 8)
-    c = cumsum2d_mxu(c1, 0, row_bits)
-    if not need_sq:
-        return c, None
-    sq_row_bits = int(np.ceil(np.log2(255 * 255 * w_real + 1)))
-    s1 = cumsum2d_mxu(px * px, 1, 16)
-    csq = cumsum2d_mxu(s1, 0, min(sq_row_bits, 32))
-    return c, csq
-
-
 def window_norm_factor(sum_img: jax.Array, sq_img: jax.Array) -> jax.Array:
     """Per-window normalization factor sqrt(area·sqSum − sum²).
 
@@ -225,3 +136,21 @@ def window_norm_factor(sum_img: jax.Array, sq_img: jax.Array) -> jax.Array:
         val = area * v_sq - v_sum * v_sum  # exact in int64
         out = jnp.sqrt(jnp.maximum(val, 0).astype(jnp.float64))
     return out.astype(jnp.float32)
+
+
+def normalized_response(raw: jax.Array, nf: jax.Array) -> jax.Array:
+    """raw / nf as the reference's float division gives it, 0 where
+    nf == 0 (haarfeatures.h:108-122); raw and nf broadcast.
+
+    XLA's float32 division on a GPU is not correctly rounded (on an H100
+    about a third of the quotients of random operands are off by an
+    ulp). The quotient is therefore taken in float64 and rounded once,
+    which gives the correctly rounded float32 quotient (53 ≥ 2·24 + 2
+    bits). The float64 denominator passes an optimization barrier: in
+    one kernel, LLVM would narrow a float64 division of two widened
+    float32 values back to the float32 division."""
+    safe = jnp.where(nf == 0.0, jnp.float32(1.0), nf)
+    with jax.enable_x64(True):
+        den = jax.lax.optimization_barrier(safe.astype(jnp.float64))
+        q = (raw.astype(jnp.float64) / den).astype(jnp.float32)
+    return jnp.where(nf != 0.0, q, jnp.float32(0.0))

@@ -8,7 +8,7 @@ first-class subsystem here, built on `jax.sharding`:
     places every (B, N) feature block with NamedSharding(P("feat", None))
     and the jitted split kernels (train/boost.py) auto-partition via
     GSPMD: per-feature quality rows are computed locally and the global
-    first-argmax reduction lowers to ICI collectives. Per-feature
+    first-argmax reduction lowers to collectives. Per-feature
     arithmetic is row-independent, so the sharded run picks *identical*
     splits to the single-device run (tested in tests/test_parallel.py).
   - this module provides the explicit `shard_map` formulation of the same
@@ -59,13 +59,14 @@ from cascadeclassifier_tpu.train.boost import (  # noqa: F401
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Multi-host (DCN) entry: initialize jax.distributed so that
-    `jax.devices()` spans every host's chips and make_mesh() below builds
-    a global mesh whose collectives ride ICI within a host and DCN
-    across hosts (SURVEY §2.6). Call once per process before any other
+    """Multi-host entry: initialize jax.distributed so that
+    `jax.devices()` spans every host's cards and make_mesh() below builds
+    a global mesh whose collectives ride NVLink within a host and the
+    network across hosts (SURVEY §2.6). Call once per process before any other
     JAX work — e.g. `traincascade_cli -numDevices -1 --coordinator
     host0:1234 --numProcesses 4 --processId $SLURM_PROCID`, or rely on
-    auto-detection on Cloud TPU pods (all args None)."""
+    JAX's cluster auto-detection where the launcher provides it (all
+    args None)."""
     kw = {}
     if coordinator is not None:
         kw["coordinator_address"] = coordinator
@@ -162,7 +163,9 @@ def sharded_batch_eval(mesh: Mesh, axis: str = "data"):
         vals = jnp.dot(
             corner_m, sum_rows.T, precision=jax.lax.Precision.HIGHEST
         )  # (F, N_local)
-        wsum = jax.lax.psum(jnp.dot(vals, w), axis)  # (F,) over all samples
+        wsum = jax.lax.psum(
+            jnp.dot(vals, w, precision=jax.lax.Precision.HIGHEST), axis
+        )  # (F,) over all samples
         return vals, wsum
 
     fn = shard_map(

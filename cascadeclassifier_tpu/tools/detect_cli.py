@@ -1,7 +1,7 @@
 """Native detection CLI — the framework's own detectMultiScale front end.
 
 Replaces the reference detection samples (tools/detection/Cpp/main.cpp,
-Python/detect.py), which delegate to OpenCV's runtime; here the TPU
+Python/detect.py), which delegate to OpenCV's runtime; here the JAX
 detector runs the cascade itself. Defaults match the reference sample
 (scaleFactor=4, minNeighbors=50 — main.cpp:45)."""
 
@@ -24,12 +24,10 @@ def main(argv=None):
     p.add_argument("-o", "--output", default=None,
                    help="write annotated image here")
     p.add_argument("--fast", action="store_true",
-                   help="float32 stage sums (~4x faster, near-exact)")
+                   help="float32 stage sums (near-exact)")
     p.add_argument("--engine",
-                   choices=["auto", "fused", "xla", "compact", "pallas"],
+                   choices=["auto", "fused", "xla", "compact"],
                    default="auto", help="stage-evaluation engine")
-    p.add_argument("--pallas-interpret", action="store_true",
-                   help=argparse.SUPPRESS)  # debug: run kernels interpreted
     args = p.parse_args(argv)
 
     import cv2
@@ -58,12 +56,7 @@ def main(argv=None):
         )
         det = HOGDetector(model)
     else:
-        det = TPUDetector(
-            model,
-            exact=not args.fast,
-            engine=args.engine,
-            pallas_interpret=args.pallas_interpret,
-        )
+        det = TPUDetector(model, exact=not args.fast, engine=args.engine)
     rects = det.detect_multi_scale(
         img,
         scale_factor=args.scale_factor,

@@ -3,7 +3,7 @@
 Mirrors the reference binary's flag surface (traincascade.cpp:39-166):
 defaults numPos=2000, numNeg=1000, numStages=20, winSize 24×24, HAAR
 BASIC, GAB stumps. Precalc buffer budgets map onto FeatureCache block
-residency (train/boost.py), the TPU analogue of the reference's
+residency (train/boost.py), the device analogue of the reference's
 valCache / sorted-index buffers.
 """
 
@@ -20,7 +20,7 @@ from cascadeclassifier_tpu.train.trainer import CascadeTrainer
 def build_parser():
     p = argparse.ArgumentParser(
         prog="tpu-traincascade",
-        description="TPU-native cascade classifier trainer "
+        description="JAX cascade classifier trainer "
         "(opencv_traincascade-compatible)",
         add_help=False,  # -h means sample height, like the reference CLI
     )

@@ -1,4 +1,4 @@
-"""Cascade training driver — the TPU counterpart of CvCascadeClassifier.
+"""Cascade training driver — the JAX counterpart of CvCascadeClassifier.
 
 Replicates the reference training loop (cascadeclassifier.cpp:137-295):
 
@@ -331,7 +331,11 @@ class CascadeTrainer:
         acceptance_ratio_break=-1.0,
         base_format_save=False,
         verbose=True,
+        max_stages: int | None = None,
     ):
+        """max_stages: stop after this many stages in total while every
+        stop rule still follows the num_stages job (e.g. the first stages
+        of the default 20-stage job)."""
         t_start = time.time()
         os.makedirs(data_dir, exist_ok=True)
         pos = PosReader(vec_path, self.win_w, self.win_h)
@@ -356,7 +360,8 @@ class CascadeTrainer:
             p.max_false_alarm ** num_stages
         ) / p.max_depth
 
-        for si in range(start_stage, num_stages):
+        last = num_stages if max_stages is None else min(num_stages, max_stages)
+        for si in range(start_stage, last):
             if verbose:
                 print(f"\n===== TRAINING {si}-stage =====")
                 print("<BEGIN")

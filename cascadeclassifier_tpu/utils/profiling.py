@@ -2,7 +2,7 @@
 
 The reference's only observability is wall-clock prints (TIME macro,
 cascadeclassifier.cpp:277-283; precalculation timing,
-o_cvcascadeboosttraindata.cpp:585-595). The TPU rebuild upgrades this to:
+o_cvcascadeboosttraindata.cpp:585-595). This rebuild upgrades this to:
 
   - ``timed(name)``: structured wall-clock scopes collected into a global
     registry (and optionally printed), replacing ad-hoc prints

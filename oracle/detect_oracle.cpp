@@ -1,7 +1,7 @@
 // Parity oracle: run OpenCV 4.x cv::CascadeClassifier::detectMultiScale on an
 // image and print detections, mirroring the reference detection sample
 // (reference: tools/detection/Cpp/main.cpp:42-49). Used by the test suite to
-// cross-validate the TPU detector and to prove our cascade.xml output loads
+// cross-validate the JAX detector and to prove our cascade.xml output loads
 // in the independent OpenCV runtime (the reference's own strongest oracle,
 // see its test_integration.cpp).
 //

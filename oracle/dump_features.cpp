@@ -1,6 +1,6 @@
 // Golden-oracle tool: link the reference TrainCascadeLib and dump the
 // generated feature catalogs (geometry + evaluator responses on a fixed
-// random image) to stdout for cross-validation of the TPU rebuild.
+// random image) to stdout for cross-validation of the JAX rebuild.
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>

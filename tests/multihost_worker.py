@@ -4,7 +4,7 @@ Each process owns ONE CPU device; `sharded.init_distributed` brings up
 `jax.distributed` so `jax.devices()` spans both processes, and the
 feature-sharded split search runs over the 2-device global mesh with its
 all_gather riding the inter-process (DCN-path) backend. This executes
-the same code path a real multi-host TPU pod uses (SURVEY §2.6 / §7
+the same code path a real multi-host cluster uses (SURVEY §2.6 / §7
 step 7) — the reference has no distributed capability at all.
 
 Usage: python multihost_worker.py <process_id> <coordinator> <out_json>

@@ -204,3 +204,51 @@ def test_negreader_skip_equals_repeated_advance(tmp_path):
         assert ref.point == fast.point and ref.last == fast.last
         assert ref.scale == fast.scale and ref.offset == fast.offset
         assert ref.img.shape == fast.img.shape
+
+
+def test_pgm_roundtrip_and_header_comments(tmp_path):
+    from cascadeclassifier_tpu.data.negreader import (
+        imread_gray,
+        read_pgm,
+        write_pgm,
+    )
+
+    img = np.random.default_rng(3).integers(0, 256, (37, 53)).astype(np.uint8)
+    p = str(tmp_path / "a.pgm")
+    write_pgm(p, img)
+    assert np.array_equal(read_pgm(p), img)
+    assert np.array_equal(imread_gray(p), img)
+    # comments and odd whitespace in the header, as other writers emit
+    q = tmp_path / "b.pgm"
+    q.write_bytes(b"P5\n# made by hand\n53  37\n# max\n255\n" + img.tobytes())
+    assert np.array_equal(read_pgm(str(q)), img)
+    assert imread_gray(str(tmp_path / "missing.pgm")) is None
+    with pytest.raises(ValueError):
+        (tmp_path / "c.pgm").write_bytes(b"P2\n1 1\n255\n0\n")
+        read_pgm(str(tmp_path / "c.pgm"))
+
+
+def test_negreader_reads_pgm_without_cv2(tmp_path, monkeypatch):
+    """The training path's background reader needs no OpenCV bindings
+    for PGM backgrounds, and yields the same windows as from PNG."""
+    import sys
+
+    from cascadeclassifier_tpu.data.negreader import write_pgm
+
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(4)
+    imgs = [rng.integers(0, 256, (60, 80)).astype(np.uint8) for _ in range(2)]
+    lists = {}
+    for ext in ("pgm", "png"):
+        names = []
+        for k, im in enumerate(imgs):
+            p = str(tmp_path / f"bg{k}.{ext}")
+            write_pgm(p, im) if ext == "pgm" else cv2.imwrite(p, im)
+            names.append(p)
+        lists[ext] = str(tmp_path / f"bg_{ext}.txt")
+        with open(lists[ext], "w") as f:
+            f.write("\n".join(names) + "\n")
+    want = NegReader(lists["png"], 24, 24).take_batch(40)
+    monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 now fails
+    got = NegReader(lists["pgm"], 24, 24).take_batch(40)
+    np.testing.assert_array_equal(got, want)

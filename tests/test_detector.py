@@ -1,8 +1,8 @@
-"""TPU detector vs the independent OpenCV C++ runtime (parity oracle).
+"""Detector vs the independent OpenCV C++ runtime (parity oracle).
 
 The reference's detection path is OpenCV's detectMultiScale
 (tools/detection/Cpp/main.cpp:42-49); these tests assert raw-window and
-grouped-detection parity of our fused TPU pipeline against it."""
+grouped-detection parity of our detection engines against it."""
 
 import os
 import subprocess
@@ -10,14 +10,15 @@ import subprocess
 import numpy as np
 import pytest
 
+from cascadeclassifier_tpu.data.synth import (
+    HAAR_FRONTALFACE_ALT as HAAR_ALT,
+    LBP_FRONTALFACE as LBP_FRONTAL,
+)
 from cascadeclassifier_tpu.detect.detector import TPUDetector
 from cascadeclassifier_tpu.detect.grouping import group_rectangles
 from cascadeclassifier_tpu.models.xml_io import read_cascade_xml
 
 from .utils_synth import face_blob_image
-
-HAAR_ALT = "/usr/share/opencv4/haarcascades/haarcascade_frontalface_alt.xml"
-LBP_FRONTAL = "/usr/share/opencv4/lbpcascades/lbpcascade_frontalface.xml"
 
 cv2 = pytest.importorskip("cv2")
 
@@ -81,20 +82,15 @@ def test_bench_config_f32_grouped_parity(oracle_bin, tmp_path):
     FULL cascade at the bench parameters (sf=1.1, minNeighbors=3) —
     including a bench-style adversarial synthetic frame (the same
     generator bench.py times, at a CPU-tractable geometry). Closes the
-    gap between the headline fps and the parity proof: on CPU this
-    drives the f32 XLA front, which test_fused_static_engine_parity /
-    test_static_front_matches_dense pin bit-identical to the static
-    Pallas front the TPU bench runs. Reference oracle:
+    gap between the headline fps and the parity proof: the f32 XLA
+    front here is the one the GPU serves. Reference oracle:
     tools/detection/Cpp/main.cpp:42-49."""
-    import sys
-
-    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
-    from bench import synth_frame
+    from cascadeclassifier_tpu.data.synth import bench_frame
 
     m = read_cascade_xml(HAAR_ALT)
     det = TPUDetector(m, exact=False, engine="fused")
     imgs = [
-        synth_frame(0, 480, 640),
+        bench_frame(0, 480, 640),
         face_blob_image(640, 480, n=8, seed=11),
         face_blob_image(320, 240, n=4, seed=5),
     ]
@@ -143,24 +139,17 @@ def test_lbp_raw_window_parity(oracle_bin, tmp_path, face_img):
 
 
 def test_static_front_matches_dense(tmp_path):
-    """The statically-unrolled Pallas front (interpret mode) is
-    bit-identical to the XLA dense f32 path over stages 1..3."""
+    """The fused engine's chunked front programs (stages 1..5 of the full
+    cascade, split at FRONT_CHUNK trees) are bit-identical to the XLA
+    dense f32 stages applied one by one to the same prep output."""
     import jax.numpy as jnp
 
-    from cascadeclassifier_tpu.detect.compact import pad_canvas_for_patchify
-    from cascadeclassifier_tpu.detect.dense import (
-        dense_stage_haar,
-        dense_variance_gate,
-    )
+    from cascadeclassifier_tpu.detect.dense import dense_stage_haar
     from cascadeclassifier_tpu.detect.detector import (
         PackedCascade,
-        _build_canvas,
-        _resize_matrices,
         plan_tables,
     )
-    from cascadeclassifier_tpu.detect.pallas_front import (
-        make_static_front_fn,
-    )
+    from cascadeclassifier_tpu.detect.engine import FusedEngine
     from cascadeclassifier_tpu.detect.pyramid import build_plan
 
     m = read_cascade_xml(HAAR_ALT)
@@ -170,17 +159,19 @@ def test_static_front_matches_dense(tmp_path):
     img = rng.integers(0, 256, (h, w)).astype(np.uint8)
     plan = build_plan(w, h, packed.win_w, packed.win_h, 1.1, None, None)
     tab = plan_tables(plan)
-    sum2d, sq2d, _ = _build_canvas(
-        jnp.asarray(img), tab, w, h, need_sq=True,
-        resize_mats=_resize_matrices(plan),
-    )
+    eng = FusedEngine(packed, exact=False, n_front=6)
+    eng.FRONT_CHUNK = 40  # several front programs over stages 1..5
+    (canvas, prep), fronts, _tail, (R, Cs) = eng.program(plan, 1 << 10)
+    assert len(fronts) > 1
+    sum2d, sq2d, tilt2d = canvas(jnp.asarray(img), tab, R, Cs)
+    inv_nf, alive0 = prep(sum2d, sq2d, tilt2d, tab)
+    got = alive0
+    for f in fronts:
+        got = f(sum2d, tilt2d, inv_nf, got)
     out_h = plan.canvas_h - packed.win_h
     out_w = plan.canvas_w - packed.win_w
-    gate, inv_nf = dense_variance_gate(
-        sum2d, sq2d, packed.win_w, packed.win_h, out_h, out_w
-    )
-    ref = gate
-    for si in (1, 2, 3):
+    ref = alive0
+    for si in range(1, 6):
         st = packed.stages[si]
         ref = ref & (
             dense_stage_haar(
@@ -188,46 +179,9 @@ def test_static_front_matches_dense(tmp_path):
             )
             >= jnp.float32(st.threshold)
         )
-    fn, (hp, wp, hh, hw) = make_static_front_fn(
-        packed.stages, [1, 2, 3], packed.win_w, packed.win_h,
-        plan.canvas_h, plan.canvas_w, 64, 128, interpret=True,
-    )
-    sum_pad = pad_canvas_for_patchify(
-        sum2d, packed.win_h, hp + hh, wp + hw
-    )
-    inv_pad = jnp.ones((hp, wp), jnp.float32).at[:out_h, :out_w].set(inv_nf)
-    alive = (
-        jnp.zeros((hp, wp), jnp.int8)
-        .at[:out_h, :out_w]
-        .set(gate.astype(jnp.int8))
-    )
-    got = np.asarray(fn(sum_pad, inv_pad, alive))[:out_h, :out_w] != 0
     refn = np.asarray(ref)
-    assert refn.sum() > 1000  # non-vacuous
-    np.testing.assert_array_equal(got, refn)
-
-    # in-kernel frame batching (frames=F grid axis): identical per-frame
-    # results to the unbatched kernel on a stacked pair of frames
-    fnb, _ = make_static_front_fn(
-        packed.stages, [1, 2, 3], packed.win_w, packed.win_h,
-        plan.canvas_h, plan.canvas_w, 64, 128, interpret=True,
-        frames=2,
-    )
-    alive2 = (
-        jnp.zeros((hp, wp), jnp.int8)
-        .at[:out_h, :out_w]
-        .set((~np.asarray(gate)).astype(jnp.int8))
-    )
-    sum_b = jnp.stack([sum_pad, sum_pad])
-    inv_b = jnp.stack([inv_pad, inv_pad])
-    al_b = jnp.stack([alive, alive2])
-    got_b = np.asarray(fnb(sum_b, inv_b, al_b))
-    np.testing.assert_array_equal(
-        got_b[0], np.asarray(fn(sum_pad, inv_pad, alive))
-    )
-    np.testing.assert_array_equal(
-        got_b[1], np.asarray(fn(sum_pad, inv_pad, alive2))
-    )
+    assert 0 < refn.sum() < np.asarray(alive0).sum()  # non-vacuous
+    np.testing.assert_array_equal(np.asarray(got), refn)
 
 
 def test_visit_set_matches_oracle_exactly(oracle_bin, tmp_path):
@@ -427,18 +381,8 @@ def ref8f(haar8, face_img):
 
 
 @pytest.mark.slow
-def test_pallas_engine_matches_xla(haar8, face_img, ref8f):
-    """The Pallas tiled kernel (interpret mode on CPU) must reproduce the
-    XLA dense path exactly."""
-    pal = TPUDetector(haar8[0], exact=False, engine="pallas",
-                      pallas_interpret=True)
-    b = sorted(map(tuple, pal.detect_multi_scale(face_img, 1.2, 0)))
-    assert b == ref8f
-
-
-@pytest.mark.slow
 def test_compact_engine_matches_xla(haar8, det8, face_img, ref8f):
-    """The survivor-compaction engine (dense front + MXU limb-matmul tail)
+    """The survivor-compaction engine (dense front + limb-matmul tail)
     must reproduce the XLA dense path exactly, in both precision modes."""
     refs = {
         True: sorted(
@@ -455,34 +399,10 @@ def test_compact_engine_matches_xla(haar8, det8, face_img, ref8f):
         assert b == refs[exact] and len(b) > 0
 
 
-def test_pallas_patchify_interpret():
-    """The pallas patch extractor must reproduce vmap'd dynamic_slice."""
-    import jax.numpy as jnp
-    from cascadeclassifier_tpu.detect.compact import (
-        make_pallas_patchify, pad_canvas_for_patchify,
-    )
-
-    rng = np.random.default_rng(1)
-    H, W, win = 400, 300, 20
-    canvas = rng.integers(-(2**31), 2**31 - 1, (H, W), dtype=np.int64)
-    canvas = jnp.asarray(canvas.astype(np.int32))
-    N = 64
-    r = rng.integers(0, H - win - 1, N).astype(np.int32)
-    c = rng.integers(0, W - win - 1, N).astype(np.int32)
-    fn, (_, PF) = make_pallas_patchify(win, win, H, W, N, interpret=True)
-    got = np.asarray(fn(pad_canvas_for_patchify(canvas, win),
-                        jnp.asarray(r), jnp.asarray(c)))
-    P = (win + 1) * (win + 1)
-    cn = np.asarray(canvas)
-    for w in range(N):
-        want = cn[r[w]:r[w] + win + 1, c[w]:c[w] + win + 1].reshape(-1)
-        assert np.array_equal(got[w, :P], want), f"window {w}"
-
-
 @pytest.mark.slow
 def test_fused_engine_matches_xla(haar8, det8, face_img, ref8f):
     """The single-dispatch fused engine (canvas + walk + dense front +
-    fixed-capacity MXU tail in chained programs with no host syncs) must
+    fixed-capacity matmul tail in chained programs with no host syncs) must
     reproduce the XLA dense path exactly, in both precision modes."""
     refs = {
         True: sorted(
@@ -497,127 +417,44 @@ def test_fused_engine_matches_xla(haar8, det8, face_img, ref8f):
         assert got == refs[exact] and len(got) > 0
 
 
-def test_packed_plan_layout_and_walk():
-    """Shelf-packed band layout (build_plan pack_band=True): level blocks
-    are disjoint and in-bounds, the 2D anchor grid holds exactly the
-    unpacked plan's anchors per level, and the packed band walk (2D grid
-    + gap-column resets, engine.parity_visited) reproduces the serial
-    per-level OpenCV walk for every band level."""
-    import jax.numpy as jnp
+def _fused(model, n_front=6, tail_n=4096):
+    from cascadeclassifier_tpu.detect.engine import FusedEngine
 
-    from cascadeclassifier_tpu.detect.dense import dense_walk_visited
-    from cascadeclassifier_tpu.detect.engine import parity_visited
-    from cascadeclassifier_tpu.detect.pyramid import build_plan
-
-    w, h, win = 240, 180, 20
-    p0 = build_plan(w, h, win, win, 1.2)
-    p1 = build_plan(w, h, win, win, 1.2, pack_band=True)
-    S = len(p1.scales)
-    occ = np.zeros((p1.canvas_h, p1.canvas_w), np.int8)
-    for s in range(S):
-        t, le = int(p1.block_top[s]), int(p1.block_left[s])
-        hb, wb = int(p1.scaled_h[s]) + 1, int(p1.scaled_w[s]) + 1
-        assert t + hb <= p1.canvas_h and le + wb <= p1.canvas_w
-        occ[t : t + hb, le : le + wb] += 1
-    assert occ.max() == 1  # disjoint level blocks
-    assert p1.canvas_h < p0.canvas_h  # packing actually shrank the canvas
-    assert int((p1.block_left > 0).sum()) > 0  # some level shares a shelf
-
-    # per-level anchor sets identical to the unpacked plan
-    out_w0 = p0.canvas_w - win
-    g0 = np.zeros((p0.canvas_h - win, out_w0), bool)
-    cols = np.arange(out_w0)
-    g0[:] = (
-        p0.row_is_grid[: p0.canvas_h - win, None]
-        & (cols[None, :] <= p0.row_maxc[: p0.canvas_h - win, None])
-        & (~p0.row_step2[: p0.canvas_h - win, None]
-           | ((cols[None, :] & 1) == 0))
+    det = TPUDetector(model, exact=False, engine="fused")
+    det._fused = FusedEngine(
+        det.packed, exact=False, n_front=n_front, tail_n=tail_n,
     )
-    for s in range(S):
-        r0, c0 = int(p0.block_top[s]), 0
-        r1, c1 = int(p1.block_top[s]), int(p1.block_left[s])
-        hs, ws = int(p1.scaled_h[s]) + 1 - win, int(p1.scaled_w[s]) + 1 - win
-        if hs <= 0 or ws <= 0:
-            continue
-        a0 = g0[r0 : r0 + hs, c0 : c0 + ws]
-        a1 = p1.grid2d[r1 : r1 + hs, c1 : c1 + ws]
-        assert np.array_equal(a0, a1), f"level {s} anchors differ"
-
-    # packed band walk == serial per-level walk under a random skip mask
-    band = np.nonzero(p1.ystep == 1)[0]
-    assert len(band) >= 2
-    out_h1, out_w1 = p1.canvas_h - win, p1.canvas_w - win
-    rng = np.random.default_rng(5)
-    m0 = rng.random((out_h1, out_w1)) < 0.6
-    grid = p1.grid2d & ~p1.row_is_plane[:out_h1, None]
-    got = np.asarray(
-        parity_visited(
-            jnp.asarray(m0), jnp.asarray(grid), None, jnp.asarray(~grid)
-        )
-    )
-    assert not np.any(got & ~grid)
-    for s in band:
-        r1, c1 = int(p1.block_top[s]), int(p1.block_left[s])
-        hs, ws = int(p1.scaled_h[s]) + 1 - win, int(p1.scaled_w[s]) + 1 - win
-        if hs <= 0 or ws <= 0:
-            continue
-        lvl_grid = grid[r1 : r1 + hs, c1 : c1 + ws]
-        want = np.asarray(
-            dense_walk_visited(
-                jnp.asarray(m0[r1 : r1 + hs, c1 : c1 + ws]),
-                jnp.asarray(lvl_grid.any(axis=1)),
-                jnp.zeros(hs, bool),
-                jnp.asarray(
-                    np.where(lvl_grid.any(axis=1),
-                             lvl_grid.shape[1] - 1, -1).astype(np.int32)
-                ),
-            )
-        )
-        # dense_walk_visited's per-row maxc bound: emulate via the grid
-        want = want & lvl_grid
-        assert np.array_equal(
-            got[r1 : r1 + hs, c1 : c1 + ws] & lvl_grid, want
-        ), f"level {s} walk differs"
+    return det
 
 
 def test_fused_static_engine_parity():
-    """End-to-end fused engine on the statically-unrolled Pallas front
-    (interpret mode): the WHOLE cascade runs in fine-tiled kernels and
-    detections come from the sparse row-compressed extraction — must
-    match the XLA engine exactly."""
+    """End-to-end fused engine with its dense front over every stage of a
+    6-stage cascade — detections come from the dense path's own
+    extraction — must match the XLA engine exactly."""
     import dataclasses
 
     m = read_cascade_xml(HAAR_ALT)
     m6 = dataclasses.replace(m, stages=list(m.stages[:6]))
     img = face_blob_image(240, 180, n=4, seed=7)
-    fus = TPUDetector(m6, exact=False, engine="fused",
-                      pallas_interpret=True)
-    assert fus._fused is not None
+    fus = _fused(m6)
     got = sorted(map(tuple, fus.detect_multi_scale(img, 1.2, 0)))
+    assert fus._fused.n_dense == len(m6.stages)
     ref = TPUDetector(m6, exact=False, engine="xla")
     want = sorted(map(tuple, ref.detect_multi_scale(img, 1.2, 0)))
     assert got == want and len(got) > 0
 
 
-@pytest.mark.parametrize("variant", ["default", "packed_slot"])
-def test_fused_hybrid_slot_tail_parity(variant, monkeypatch):
-    """Hybrid static front + MXU tail (interpret mode): the production
-    TPU path — Pallas front chunks, split-tail extraction, limb-emitting
-    patchify kernel — must match the XLA engine exactly. The
-    "packed_slot" variant covers the flagged alternatives (survivor-
-    packed front blocks + slot-major stride-32 limb planes)."""
+@pytest.mark.parametrize("variant", ["default"])
+def test_fused_hybrid_slot_tail_parity(variant):
+    """Dense front + limb-matmul tail: front stages 1..2,
+    survivor extraction, patch gather and the re-compacting tail over
+    stages 3.. must match the XLA engine exactly."""
     import dataclasses
 
-    if variant == "packed_slot":
-        monkeypatch.setenv("CCTPU_PACKED_FRONT", "1")
-        monkeypatch.setenv("CCTPU_SLOT_LIMBS", "1")
     m = read_cascade_xml(HAAR_ALT)
     m10 = dataclasses.replace(m, stages=list(m.stages[:10]))
     img = face_blob_image(240, 180, n=4, seed=7)
-    fus = TPUDetector(m10, exact=False, engine="fused",
-                      pallas_interpret=True)
-    fus._fused.STATIC_FRONT_TREES = 50  # cutover after ~3 stages
-    fus._fused.tail_n = 4096
+    fus = _fused(m10, n_front=3)
     got = sorted(map(tuple, fus.detect_multi_scale(img, 1.2, 0)))
     assert fus._fused.n_dense < len(m10.stages)  # tail actually ran
     ref = TPUDetector(m10, exact=False, engine="xla")
@@ -666,202 +503,6 @@ def test_parity_visited_matches_walk_scan():
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
-def test_pallas_patchify_limb_emit():
-    """emit='limbs_rel'/'limbs_abs' equal the reference limb extraction
-    applied to the int32 patches (the fused transpose+limb path the TPU
-    tail consumes)."""
-    import jax.numpy as jnp
-    from cascadeclassifier_tpu.detect.compact import (
-        _limbs_abs, _limbs_rel, make_pallas_patchify,
-        pad_canvas_for_patchify,
-    )
-
-    rng = np.random.default_rng(7)
-    H, W, win = 160, 200, 20
-    canvas = jnp.asarray(
-        rng.integers(-(2**31), 2**31 - 1, (H, W), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    N, CNT = 64, 50
-    r = np.where(np.arange(N) < CNT,
-                 rng.integers(0, H - win - 1, N), 0).astype(np.int32)
-    c = np.where(np.arange(N) < CNT,
-                 rng.integers(0, W - win - 1, N), 0).astype(np.int32)
-    pad = pad_canvas_for_patchify(canvas, win)
-    f32, _ = make_pallas_patchify(win, win, H, W, N, interpret=True)
-    ps = f32(pad, jnp.asarray(r), jnp.asarray(c), jnp.int32(CNT))
-    for emit, ref_fn in (("limbs_rel", _limbs_rel), ("limbs_abs", _limbs_abs)):
-        fn, _ = make_pallas_patchify(
-            win, win, H, W, N, interpret=True, emit=emit
-        )
-        got = fn(pad, jnp.asarray(r), jnp.asarray(c), jnp.int32(CNT))
-        want = ref_fn(ps)
-        assert len(got) == len(want)
-        for g, w in zip(got, want):
-            assert g.dtype == jnp.bfloat16
-            assert np.array_equal(np.asarray(g), np.asarray(w)), emit
-
-
-def test_pallas_patchify_slot_limb_emit():
-    """emit='limbs_rel_slot' (no octet transpose; slot-major window
-    order, stride-32 patch grid) must hold exactly the reference rel
-    limbs: slot[l][s*n8+q, i*32+j] == ref[l][q*8+s, i*pw+j]."""
-    import jax.numpy as jnp
-    from cascadeclassifier_tpu.detect.compact import (
-        _limbs_rel, make_pallas_patchify, pad_canvas_for_patchify,
-    )
-
-    rng = np.random.default_rng(11)
-    H, W, win = 160, 200, 24
-    canvas = jnp.asarray(
-        rng.integers(0, 2**30, (H, W), dtype=np.int64).astype(np.int32)
-    )
-    N, CNT = 128, 101
-    r = np.where(np.arange(N) < CNT,
-                 rng.integers(0, H - win - 1, N), 0).astype(np.int32)
-    c = np.where(np.arange(N) < CNT,
-                 rng.integers(0, W - win - 1, N), 0).astype(np.int32)
-    pad = pad_canvas_for_patchify(canvas, win)
-    f32, _ = make_pallas_patchify(win, win, H, W, N, interpret=True)
-    ps = f32(pad, jnp.asarray(r), jnp.asarray(c), jnp.int32(CNT))
-    want = [np.asarray(x) for x in _limbs_rel(ps)]
-    fn, (_, PF) = make_pallas_patchify(
-        win, win, H, W, N, interpret=True, emit="limbs_rel_slot"
-    )
-    got = fn(pad, jnp.asarray(r), jnp.asarray(c), jnp.int32(CNT))
-    ph = pw = win + 1
-    n8 = N // 8
-    assert PF == ph * 32
-    for lg, lw in zip(got, want):
-        assert lg.dtype == jnp.bfloat16 and lg.shape == (N, ph * 32)
-        g = np.asarray(lg).reshape(8, n8, ph, 32)[..., :pw]
-        w = lw.reshape(n8, 8, ph, pw).transpose(1, 0, 2, 3)
-        assert np.array_equal(g, w)
-
-
-def test_tail_compact_slot_major_matches():
-    """make_tail_compact_fn(slot_major=True) over the slot-major limb
-    planes returns the same survivor set (original window ids) as the
-    plain tail over tight patches."""
-    import jax.numpy as jnp
-    from cascadeclassifier_tpu.detect.compact import (
-        make_pallas_patchify, make_tail_compact_fn,
-        pad_canvas_for_patchify,
-    )
-    from cascadeclassifier_tpu.detect.detector import PackedCascade
-
-    m = read_cascade_xml(HAAR_ALT)
-    packed = PackedCascade.from_model(m)
-    win = m.width
-    rng = np.random.default_rng(3)
-    H, W = 160, 200
-    img = rng.integers(0, 256, (H, W)).astype(np.int64)
-    canvas = jnp.asarray(
-        np.pad(img, ((1, 0), (1, 0))).cumsum(0).cumsum(1).astype(np.int32)
-    )
-    N, CNT = 64, 49
-    r = np.where(np.arange(N) < CNT,
-                 rng.integers(0, H - win - 1, N), 0).astype(np.int32)
-    c = np.where(np.arange(N) < CNT,
-                 rng.integers(0, W - win - 1, N), 0).astype(np.int32)
-    inv = (1.0 / rng.uniform(1.0, 80.0, N)).astype(np.float32)
-    pad = pad_canvas_for_patchify(canvas, win)
-    start = 3
-    f32, _ = make_pallas_patchify(win, win, H, W, N, interpret=True)
-    ps = f32(pad, jnp.asarray(r), jnp.asarray(c), jnp.int32(CNT))
-
-    # random windows never survive the real cascade; recalibrate each
-    # stage's threshold to the median stage sum of the live windows so
-    # ~half survive per stage (exercising the shrink gathers with a
-    # non-trivial survivor pattern)
-    import dataclasses
-
-    pn = np.asarray(ps)
-    cw = win + 1
-    alive_np = np.arange(N) < CNT
-    new_stages = list(packed.stages)
-    for si in range(start, len(packed.stages)):
-        st = packed.stages[si]
-        ssum = np.zeros(N, np.float32)
-        for t in range(st.ntrees):
-            raw = np.zeros(N, np.float32)
-            for ri in range(3):
-                wt = np.float32(st.weights[t, ri])
-                if wt == 0.0:
-                    continue
-                x, y, w_, h_ = (int(v) for v in st.feat_rects[t, ri])
-                rs = (
-                    pn[:, y * cw + x]
-                    - pn[:, y * cw + x + w_]
-                    - pn[:, (y + h_) * cw + x]
-                    + pn[:, (y + h_) * cw + x + w_]
-                ).astype(np.float32)
-                raw = raw + rs * wt
-            val = raw * inv
-            leaf = np.where(val < st.thr[t], st.left_leaf[t],
-                            st.right_leaf[t]).astype(np.float32)
-            ssum = ssum + leaf
-        # 0.01 below the live median: far beyond any f32 rounding, so
-        # both tails make identical pass/fail decisions
-        sthr = (
-            float(np.median(ssum[alive_np])) - 0.01
-            if alive_np.any() else 0.0
-        )
-        new_stages[si] = dataclasses.replace(
-            st, threshold=np.float32(sthr)
-        )
-        alive_np &= ssum >= np.float32(sthr)
-    packed = dataclasses.replace(packed, stages=new_stages)
-    assert 0 < int(alive_np.sum()) < CNT
-
-    ref_tail = make_tail_compact_fn(packed, start, False, N, n_floor=16)
-    rw, ra, rof = ref_tail(ps, ps, jnp.asarray(inv), jnp.int32(CNT))
-    ref = sorted(np.asarray(rw)[np.asarray(ra)].tolist())
-
-    fn, _ = make_pallas_patchify(
-        win, win, H, W, N, interpret=True, emit="limbs_rel_slot"
-    )
-    limbs = fn(pad, jnp.asarray(r), jnp.asarray(c), jnp.int32(CNT))
-    slot_tail = make_tail_compact_fn(
-        packed, start, False, N, n_floor=16, slot_major=True
-    )
-    sw, sa, sof = slot_tail(limbs, limbs, jnp.asarray(inv), jnp.int32(CNT))
-    got = sorted(np.asarray(sw)[np.asarray(sa)].tolist())
-    assert bool(rof) == bool(sof) is False
-    assert got == ref and len(ref) > 0
-
-
-def test_pallas_patchify_cnt_guard():
-    """Slots past `cnt` are skipped (zero output), real slots unchanged."""
-    import jax.numpy as jnp
-    from cascadeclassifier_tpu.detect.compact import (
-        make_pallas_patchify, pad_canvas_for_patchify,
-    )
-
-    rng = np.random.default_rng(5)
-    H, W, win = 200, 240, 20
-    canvas = jnp.asarray(
-        rng.integers(-(2**31), 2**31 - 1, (H, W), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    N, CNT = 64, 37
-    r = rng.integers(0, H - win - 1, N).astype(np.int32)
-    c = rng.integers(0, W - win - 1, N).astype(np.int32)
-    fn, _ = make_pallas_patchify(win, win, H, W, N, interpret=True)
-    pad = pad_canvas_for_patchify(canvas, win)
-    got = np.asarray(
-        fn(pad, jnp.asarray(r), jnp.asarray(c), jnp.int32(CNT))
-    )
-    P = (win + 1) * (win + 1)
-    cn = np.asarray(canvas)
-    for w in range(CNT):
-        want = cn[r[w]:r[w] + win + 1, c[w]:c[w] + win + 1].reshape(-1)
-        assert np.array_equal(got[w, :P], want), f"window {w}"
-    assert not got[CNT:].any()
-
-
 def test_fused_engine_tilted_deep_parity():
     """Tilted + depth-2 cascades (eye_tree_eyeglasses) run on the fused
     single-dispatch engine (all-dense XLA front, tilted canvas) and must
@@ -887,7 +528,7 @@ def test_fused_engine_tilted_deep_parity():
 
 
 def test_fused_engine_tilted_stump_tail_parity(tmp_path):
-    """A tilted all-stump cascade exercises the fused MXU tail's tilted
+    """A tilted all-stump cascade exercises the fused matmul tail's tilted
     patch path (patchify over the tilted canvas)."""
     import dataclasses
 
@@ -932,9 +573,9 @@ def test_fused_engine_tilted_stump_tail_parity(tmp_path):
 
 
 def test_fused_batched_head_programs_identical(face_img):
-    """The vmapped F-frame head programs (detect_async_batch) must produce
-    exactly the per-frame results, on both the XLA front and the
-    static-Pallas (interpret) front."""
+    """The vmapped F-frame head programs (detect_async_batch: canvas,
+    prep and the front vmapped, tail per frame) must produce exactly the
+    per-frame results."""
     import dataclasses
 
     m = read_cascade_xml(HAAR_ALT)
@@ -953,33 +594,6 @@ def test_fused_batched_head_programs_identical(face_img):
     got = det2.detect_multi_scale_batch(frames, 1.2, 0)
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(a, b)
-
-    det3 = TPUDetector(m6, exact=False, engine="fused",
-                       pallas_interpret=True)
-    det3._fused.BATCH_F = 4
-    got3 = det3.detect_multi_scale_batch(frames, 1.2, 0)
-    for a, b in zip(ref, got3):
-        # the static-front engine uses the shelf-packed canvas, whose
-        # raw-window enumeration order differs from the row-table
-        # layout's scan order — set equality is the contract (as for the
-        # split tail's plane-then-band order)
-        assert sorted(map(tuple, a)) == sorted(map(tuple, b))
-
-    # in-kernel frame batching (CCTPU_KBATCH): the F-framed chunk
-    # kernels replace the per-frame front dispatches — identical results
-    import os
-
-    os.environ["CCTPU_KBATCH"] = "1"
-    try:
-        det4 = TPUDetector(m6, exact=False, engine="fused",
-                           pallas_interpret=True)
-        det4._fused.BATCH_F = 4
-        got4 = det4.detect_multi_scale_batch(frames, 1.2, 0)
-        assert getattr(det4._fused, "_mk_batched_fronts", None) is not None
-        for a, b in zip(ref, got4):
-            assert sorted(map(tuple, a)) == sorted(map(tuple, b))
-    finally:
-        del os.environ["CCTPU_KBATCH"]
 
 
 def test_windowed_batch_submission_matches_per_frame(face_img):
@@ -1008,97 +622,44 @@ def test_windowed_batch_submission_matches_per_frame(face_img):
                                 (333, 257)])
 def test_fused_engine_builds_at_geometry(wh):
     """Program construction (plan → chained program set) must succeed at
-    production geometries — catches static-front/plane pad and row_lo
-    arithmetic bugs without executing any kernel."""
-    from cascadeclassifier_tpu.detect.engine import FusedEngine
+    production geometries — catches canvas and front chunking arithmetic
+    bugs without executing any program."""
     from cascadeclassifier_tpu.detect.detector import PackedCascade
+    from cascadeclassifier_tpu.detect.engine import FusedEngine
     from cascadeclassifier_tpu.detect.pyramid import build_plan
 
     w, h = wh
     m = read_cascade_xml(HAAR_ALT)
     packed = PackedCascade.from_model(m)
-    eng = FusedEngine(packed, exact=False, interpret=True)
     plan = build_plan(w, h, packed.win_w, packed.win_h, 1.1, None, None)
-    (canvas, prep, psplit, prep_plane, prep_band, stitch), fronts, tail, \
-        consts = eng.program(plan, 1 << 14)
-    assert len(fronts) >= 1 and eng.n_dense >= 2
-    # interpret=True → static front: split-layout head (prep is None,
-    # plane and/or band prep exist); the hybrid (n_dense < stages) uses
-    # the split tail (no stitch program), the all-static path keeps
-    # stitch for its sparse extraction
-    assert prep is None
-    assert prep_plane is not None or prep_band is not None
-    n_stages = len(packed.stages)
-    assert (stitch is None) == (eng.n_dense < n_stages)
+    n_front_trees = sum(st.ntrees for st in packed.stages[1:6])
+    eng = FusedEngine(packed, exact=False)
+    (canvas, prep), fronts, tail, consts = eng.program(plan, 1 << 14)
+    assert eng.n_dense == 6 and tail is not None
+    assert len(fronts) >= n_front_trees // FusedEngine.FRONT_CHUNK
+    R, Cs = consts
+    assert R.shape == (plan.canvas_h, plan.img_h)
+    assert len(Cs) == len(plan.scales)
 
 
-def test_block_nonzero_matches_full():
-    """make_block_nonzero_fn (OR-reduced 128-lane blocks + one small 1-D
-    sort) returns exactly make_nonzero_fn's ascending zero-padded index
-    list at every sparsity, and flags live-block overflow."""
-    from cascadeclassifier_tpu.detect.compact import (
-        make_block_nonzero_fn,
-        make_nonzero_fn,
-    )
-
-    rng = np.random.default_rng(11)
-    for (rows, cols, dens) in [
-        (64, 200, 0.002), (37, 333, 0.05), (128, 128, 0.0),
-        (90, 500, 0.3),
-    ]:
-        mask = rng.random((rows, cols)) < dens
-        n_max = 1 << 12
-        want = np.asarray(make_nonzero_fn(rows, cols, n_max)(mask))
-        got, oflow = make_block_nonzero_fn(rows, cols, n_max, kb=1 << 10)(
-            mask
-        )
-        assert not bool(oflow)
-        np.testing.assert_array_equal(np.asarray(got), want)
-    # overflow: more live blocks than kb
-    mask = np.ones((64, 256), bool)
-    _, oflow = make_block_nonzero_fn(64, 256, 1 << 8, kb=16)(mask)
-    assert bool(oflow)
-    # small canvas: kb*128 < n_max (shelf-packed plan geometry — the
-    # round-4 regression: flat[:n_max] used to under-slice and crash)
-    mask = rng.random((12, 130)) < 0.2
-    n_max = 1 << 16
-    want = np.asarray(make_nonzero_fn(12, 130, n_max)(mask))
-    got, oflow = make_block_nonzero_fn(12, 130, n_max)(mask)
-    assert not bool(oflow)
-    np.testing.assert_array_equal(np.asarray(got), want)
-
-
-@pytest.mark.parametrize(
-    "nz_merged",
-    [
-        "0",
-        pytest.param("1", marks=pytest.mark.slow),  # non-default: the
-        # merged (plane ⊕ band) extraction faults real TPUs at 1080p
-        # (engine.py), kept behind CCTPU_NZ_MERGED for newer toolchains
-    ],
-)
-def test_fused_split_tail_parity(nz_merged, monkeypatch):
-    """Hybrid static-front + split-tail path (survivors extracted
-    straight from the plane/band masks via the block nonzero) matches
-    the XLA engine exactly. STATIC_FRONT_TREES is lowered so the 6-stage
-    cascade cuts over to the MXU tail after ~2 stages."""
+@pytest.mark.parametrize("n_front", [2, 3])
+def test_fused_split_tail_parity(n_front):
+    """Fused XLA front cut over to the limb-matmul tail after n_front
+    stages (survivor extraction → patch gather → re-compacting tail)
+    matches the XLA engine exactly."""
     import dataclasses
 
     from cascadeclassifier_tpu.detect.engine import FusedEngine
 
-    monkeypatch.setenv("CCTPU_NZ_MERGED", nz_merged)
     m = read_cascade_xml(HAAR_ALT)
     m6 = dataclasses.replace(m, stages=list(m.stages[:6]))
     img = face_blob_image(240, 180, n=4, seed=7)
-    fus = TPUDetector(m6, exact=False, engine="fused",
-                      pallas_interpret=True)
-    old = FusedEngine.STATIC_FRONT_TREES
-    FusedEngine.STATIC_FRONT_TREES = 30
-    try:
-        got = sorted(map(tuple, fus.detect_multi_scale(img, 1.2, 0)))
-    finally:
-        FusedEngine.STATIC_FRONT_TREES = old
-    assert fus._fused.n_dense < len(m6.stages)  # split tail engaged
+    fus = TPUDetector(m6, exact=False, engine="fused")
+    fus._fused = FusedEngine(
+        fus.packed, exact=False, n_front=n_front, tail_n=4096,
+    )
+    got = sorted(map(tuple, fus.detect_multi_scale(img, 1.2, 0)))
+    assert fus._fused.n_dense == n_front < len(m6.stages)
     ref = TPUDetector(m6, exact=False, engine="xla")
     want = sorted(map(tuple, ref.detect_multi_scale(img, 1.2, 0)))
     assert got == want and len(got) > 0

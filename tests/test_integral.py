@@ -81,49 +81,3 @@ def test_norm_factor_zero_on_constant_image():
         )
     )[0]
     assert out == 0.0
-
-
-def test_cumsum2d_mxu_bit_identical():
-    """The blocked MXU limb cumsum must be BIT-identical to jnp.cumsum
-    int32 (wraparound included) for canvas-typical value ranges."""
-    import jax.numpy as jnp
-
-    from cascadeclassifier_tpu.ops.integral import cumsum2d_mxu
-
-    rng = np.random.default_rng(0)
-    for (h, w) in [(700, 1900), (513, 257), (256, 256), (40, 300)]:
-        px = rng.integers(0, 256, (h, w)).astype(np.int32)
-        x = jnp.asarray(px)
-        for axis in (0, 1):
-            ref = jnp.cumsum(x, axis=axis, dtype=jnp.int32)
-            got = cumsum2d_mxu(x, axis, 8)
-            assert (np.asarray(got) == np.asarray(ref)).all(), (h, w, axis)
-        # 16-bit inputs (squared pixels)
-        sq = px * px
-        ref = jnp.cumsum(jnp.asarray(sq), axis=1, dtype=jnp.int32)
-        got = cumsum2d_mxu(jnp.asarray(sq), 1, 16)
-        assert (np.asarray(got) == np.asarray(ref)).all()
-
-
-def test_integral2d_mxu_matches_cumsum_chain():
-    """Full 2D integral (sum + sq, int32 wraparound) bit-identical to the
-    chained-cumsum formulation of _build_canvas — including the sq row
-    pass whose block prefixes WRAP int32."""
-    import jax.numpy as jnp
-
-    from cascadeclassifier_tpu.ops.integral import integral2d_mxu
-
-    rng = np.random.default_rng(1)
-    # tall canvas: forces multi-block row pass with wrapping carries
-    h, w = 2100, 800
-    px = rng.integers(0, 256, (h, w)).astype(np.int32)
-    # all-255 stripe maximizes limb values / forces top-limb carries
-    px[100:400] = 255
-    x = jnp.asarray(px)
-    ref_c = jnp.cumsum(jnp.cumsum(x, axis=1, dtype=jnp.int32), axis=0,
-                       dtype=jnp.int32)
-    ref_q = jnp.cumsum(jnp.cumsum(x * x, axis=1, dtype=jnp.int32), axis=0,
-                       dtype=jnp.int32)
-    c, q = integral2d_mxu(x, True, w)
-    assert (np.asarray(c) == np.asarray(ref_c)).all()
-    assert (np.asarray(q) == np.asarray(ref_q)).all()

@@ -185,7 +185,7 @@ def test_cli_mesh_flag_resolves():
 @pytest.mark.slow
 def test_cli_sharded_training_identical(tmp_path):
     """CLI-driven sharded training (-numDevices 8) writes stages
-    byte-identical to the single-device run (VERDICT r2 item 4)."""
+    byte-identical to the single-device run."""
     import cv2
 
     from cascadeclassifier_tpu.data.vec import write_vec
@@ -216,7 +216,7 @@ def test_cli_sharded_training_identical(tmp_path):
 
 
 def test_multihost_dcn_split_matches_single_process(tmp_path):
-    """Executed multi-host path (VERDICT r3 item 4): two OS processes,
+    """Executed multi-host path: two OS processes,
     one CPU device each, joined via jax.distributed.initialize through
     `sharded.init_distributed`; the feature-sharded split search runs on
     the 2-device global mesh (all_gather crosses the process boundary)

@@ -1,28 +1,3 @@
-"""Synthetic test-image generators.
+"""Synthetic test images: the package's seeded numpy generator."""
 
-Haar face cascades fire hundreds of raw windows on blurred "face blob"
-patterns (bright ellipse + dark eyes/mouth), which makes detector-parity
-tests non-vacuous; plain noise and flat textures fire none."""
-
-import numpy as np
-
-
-def face_blob_image(w=640, h=480, n=20, seed=3):
-    import cv2
-
-    rng = np.random.default_rng(seed)
-    img = np.full((h, w), 128, np.uint8)
-    for _ in range(n):
-        cx = int(rng.integers(60, w - 60))
-        cy = int(rng.integers(60, h - 60))
-        s = int(rng.integers(20, 60))
-        cv2.ellipse(img, (cx, cy), (s, int(s * 1.25)), 0, 0, 360,
-                    int(rng.integers(180, 230)), -1)
-        for ex in (-1, 1):
-            cv2.circle(img, (cx + ex * s // 3, cy - s // 4),
-                       max(2, s // 8), int(rng.integers(30, 80)), -1)
-        cv2.ellipse(img, (cx, cy + s // 2), (s // 3, s // 8), 0, 0, 360,
-                    int(rng.integers(40, 90)), -1)
-    img = cv2.GaussianBlur(img, (5, 5), 1.5)
-    noise = rng.integers(-8, 8, img.shape).astype(np.int16)
-    return np.clip(img.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+from cascadeclassifier_tpu.data.synth import face_blob_image  # noqa: F401
